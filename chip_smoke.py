@@ -11,10 +11,13 @@ Phases (any failure raises and the script exits non-zero):
      seconds taken;
   2. the wipeoff kernel (csrc/wipeoff.cu) against its plain PyTorch
      version on the card, at the product shapes (11 channels, K=8, one
-     32-block chunk);
+     32-block chunk), then with wipe delays 0, 1, 127, 128 and cs - 1 at
+     the product and the tests' small configuration;
   3. the cheap-stage kernel against its plain version on the card, at
      the product shapes: 8 chained K-steps, one from a full wrapped
-     correlation ring, one with ms_time past 2^24;
+     correlation ring, one with ms_time past 2^24; then the crafted case
+     (cheap_case) at the product and the small configuration, with the
+     kernel's input state checked unchanged;
   4. the replay slice: the examples/synthetic_fix.py default scenario
      (6 satellites, seed 3, noise 0.5, 40 s of IQ synthesized on the
      host) through the port's Session.run_source on the card; the
@@ -48,7 +51,6 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SLICE_SEC = 40.0
 N_SATS, SEED, NOISE = 6, 3, 0.5
 CHEAP_STEPS = 8                 # chained K-steps of the cheap-kernel check
-SYNTH_WORKERS = 8               # threads synthesizing the slice's IQ
 # one NVIDIA H100 SXM at its 700 W limit (data sheet): device memory
 # rate and the f32 rate outside the tensor cores
 H100_BYTES_PER_S = 3.35e12
@@ -149,11 +151,24 @@ def wipeoff_bound(cfg, wipe) -> tuple[float, str]:
     return _bound(n_bytes, n_ops)
 
 
+def crafted_wipe(cfg, n_ch):
+    """Wipeoff delays i32[n_ch, K] cycling through 0, 1, 127, 128 and
+    cs - 1: the head mask and the code roll on both sides of a 128-column
+    tile edge and at both ends of the code period."""
+    import torch
+
+    cs, k = cfg.code_samples, cfg.blocks_per_step
+    vals = torch.tensor([0, 1, 127, 128, cs - 1], dtype=torch.int32)
+    return vals[torch.arange(n_ch * k).reshape(n_ch, k) % len(vals)]
+
+
 def check_wipeoff(cfg, states, chunk, step, codes, code_ffts,
-                  timing: bool = False, vpu: bool = False) -> dict:
+                  timing: bool = False, vpu: bool = False,
+                  wipe=None) -> dict:
     """A wipeoff kernel vs its plain version on the same CUDA inputs:
     mix_wipeoff on the complex chunk, or with vpu=True mix_wipeoff_vpu
-    on the chunk in the grouped planar layout.  Tolerances:
+    on the chunk in the grouped planar layout; `wipe` overrides the
+    predicted wipeoff delays.  Tolerances:
     head/seg/center max abs error <= 1e-4 of the largest magnitude (f32
     sums over 2048 samples in another order), and on the derived
     correlation delay exact, code_phase atol 5e-3, norm_max rtol
@@ -166,7 +181,10 @@ def check_wipeoff(cfg, states, chunk, step, codes, code_ffts,
     k = cfg.blocks_per_step
     s = 2.0 * math.pi * states.freq / cfg.sample_rate
     snp = torch.remainder(s * cfg.ngps, 2.0 * math.pi)
-    wipe = tracking.predict_wipe_delays(cfg, k, states.freq, states.delay)
+    if wipe is None:
+        wipe = tracking.predict_wipe_delays(cfg, k, states.freq,
+                                            states.delay)
+    wipe = wipe.to(chunk.device)
     if vpu:
         kernel = hopper_wipeoff.mix_wipeoff_vpu
         plain = hopper_wipeoff.mix_wipeoff_vpu_plain
@@ -326,30 +344,154 @@ def check_cheap_chain(cfg, states, chunk, codes, code_ffts,
     return dict(max_abs_err=worst, edges=n_edges, **times)
 
 
+def cheap_case(cfg, n_ch, seed, device):
+    """A crafted cheap-kernel case made with numpy from `seed`: the
+    arguments of cheap_scan (cfg, K, head, seg, delay, wipe, state) on
+    `device`, and what the case holds (`facts`).
+
+    The per-ms means are designed after the retune rotation (the raw
+    sums are the designed means rotated forward by the angle the plain
+    version applies, found by running it on the blocks before): unit
+    means with sign flips forced into the last two slots (31 and 32 at
+    the product's n_cyc), or, in odd blocks of locked channels, phases
+    alternating across +-pi/2 (a PLL unwrap step at every slot); wipe
+    delays 0 and cs - 1 in every channel (slot compaction when the
+    carry is empty, the full n_cyc + 1 slots after a cs - 1 block);
+    channels 0, 3, 6, 9 start unlocked with a 0.2 rad offset that
+    vanishes from block 2, so they lock inside the step; full, wrapped
+    correlation and df rings; ms_time past 2^24 in even channels."""
+    import numpy as np
+    import torch
+    from gps_sdr_tpu_torch.ops import hopper_cheap, tracking
+
+    rng = np.random.default_rng(seed)
+    k, cs, n_cyc = cfg.blocks_per_step, cfg.code_samples, cfg.n_cyc
+    hist, no_sec, sl = cfg.corr_hist_len, cfg.no_sec, n_cyc + 1
+    ch = np.arange(n_ch)
+    locked = ch % 3 != 0
+    carry_cnt = np.where(ch % 2 == 0, rng.integers(1, cs, n_ch), 0)
+    st = tracking.init_channel_states(cfg, n_ch, "cpu")._replace(
+        active=torch.ones(n_ch, dtype=torch.bool),
+        locked=torch.from_numpy(locked),
+        std_dev=torch.full((n_ch,), 0.05),
+        sign0=torch.from_numpy(np.where(ch % 4 < 2, rng.choice(
+            [-1, 1], n_ch), 0).astype(np.int8)),
+        prev_sign=torch.from_numpy(rng.choice([-1, 1], n_ch).astype(
+            np.int8)),
+        prev_signal=torch.from_numpy(rng.choice([-1.0, 1.0], n_ch).astype(
+            np.float32)),
+        ms_time=torch.from_numpy(np.where(
+            ch % 2 == 0, 2 ** 25 + 3, rng.integers(0, 10 ** 6, n_ch)
+        ).astype(np.int32)),
+        carry_sum=torch.from_numpy((carry_cnt * np.exp(
+            1j * rng.uniform(-0.1, 0.1, n_ch))).astype(np.complex64)),
+        carry_cnt=torch.from_numpy(carry_cnt.astype(np.int32)),
+        corr_buf=torch.from_numpy(rng.choice([-1, 1], (n_ch, hist)).astype(
+            np.int8)),
+        corr_cnt=torch.full((n_ch,), hist, dtype=torch.int32),
+        corr_idx=torch.from_numpy(rng.integers(0, hist, n_ch).astype(
+            np.int32)),
+        df_buf=torch.from_numpy((1e-3 * rng.standard_normal(
+            (n_ch, no_sec))).astype(np.float32)),
+        df_cnt=torch.full((n_ch,), no_sec, dtype=torch.int32),
+        df_idx=torch.from_numpy(rng.integers(0, no_sec, n_ch).astype(
+            np.int32)))
+
+    seq = np.resize([0, 0, cs - 1, 0, cs // 2, cs - 1, 1, 0], k)
+    wipe = np.stack([np.roll(seq, c) for c in ch]).astype(np.int32)
+    delay = np.where(rng.random((n_ch, k)) < 0.3, -1,
+                     rng.integers(0, cs, (n_ch, k))).astype(np.int32)
+    head = torch.zeros((n_ch, k), dtype=torch.complex64)
+    seg = torch.zeros((n_ch, k, n_cyc), dtype=torch.complex64)
+    wipe_t, delay_t = torch.from_numpy(wipe), torch.from_numpy(delay)
+    c_cnt, c_sum = st.carry_cnt.numpy(), st.carry_sum.numpy()
+    n_compact = n_jump_blocks = 0
+    for b in range(k):
+        # designed means, by source: 0 = carry + head, j = segment j - 1
+        jumps = locked & (b % 2 == 1)
+        signs = rng.choice([-1.0, 1.0], (n_ch, sl))
+        signs[:, n_cyc - 1] = -signs[:, n_cyc - 2]
+        signs[:, n_cyc] = -signs[:, n_cyc - 1]
+        theta = rng.normal(0.0, 0.02, (n_ch, sl)) + np.where(
+            ~locked & (b < 2), 0.2, 0.0)[:, None]
+        alt = np.where(np.arange(sl) % 2 == 0, 1.3, np.pi - 1.3)
+        theta = np.where(jumps[:, None], alt + 0.02 * theta, theta)
+        signs = np.where(jumps[:, None], 1.0, signs)
+        amp = 1.0 + 0.02 * rng.standard_normal((n_ch, sl))
+        want = torch.from_numpy((amp * signs * np.exp(1j * theta)).astype(
+            np.complex64))
+        n_jump_blocks += int(jumps.sum())
+        # the plain version's retune angle for this block
+        if b:
+            prior = hopper_cheap.cheap_scan_plain(
+                cfg, b, head[:, :b], seg[:, :b], delay_t[:, :b],
+                wipe_t[:, :b], st)
+            dphi, df_sum = prior.dphi, prior.df_sum
+        else:
+            dphi = df_sum = torch.zeros(n_ch)
+        w = wipe[:, b]
+        starts = np.concatenate(
+            [-c_cnt[:, None], w[:, None] + cs * np.arange(n_cyc)], axis=1)
+        t_m = (torch.from_numpy(starts.astype(np.float32)) + 0.5 * cs) \
+            / cfg.sample_rate
+        ang = dphi[:, None] + hopper_cheap.TWO_PI * df_sum[:, None] * t_m
+        raw = want * torch.complex(torch.cos(ang), torch.sin(ang))
+        seg[:, b] = raw[:, 1:] * cs
+        cnt0 = c_cnt + w
+        n_compact += int((cnt0 == 0).sum())
+        head[:, b] = torch.where(
+            torch.from_numpy(cnt0 > 0),
+            raw[:, 0] * torch.from_numpy(np.maximum(cnt0, 1).astype(
+                np.float32)) - torch.from_numpy(c_sum), 0)
+        c_sum = np.where(w > 0, seg[:, b, n_cyc - 1].numpy(), 0).astype(
+            np.complex64)
+        c_cnt = np.where(w > 0, cs - w, 0)
+    st = tracking.ChannelState(*(v.to(device) for v in st))
+    facts = dict(compacted_blocks=n_compact, jump_blocks=n_jump_blocks,
+                 wipes=sorted(set(wipe.ravel().tolist())))
+    return ((cfg, k, head.to(device), seg.to(device), delay_t.to(device),
+             wipe_t.to(device), st), facts)
+
+
+def check_cheap_case(cfg, n_ch, seed, device) -> dict:
+    """The cheap kernel against its plain version on cheap_case: the
+    _compare_cheap tolerances, the state left unchanged, and the case
+    reaching what it was made for (edges accepted in the last two slots,
+    a channel locking inside the step, compacted blocks, PLL steps)."""
+    import torch
+    from gps_sdr_tpu_torch.ops import hopper_cheap
+
+    args, facts = cheap_case(cfg, n_ch, seed, device)
+    st = args[-1]
+    before = [v.clone() for v in st]
+    got = hopper_cheap.cheap_scan(*args)
+    want = hopper_cheap.cheap_scan_plain(*args)
+    torch.cuda.synchronize()
+    worst = _compare_cheap(got, want)
+    if not all(torch.equal(a, b) for a, b in zip(before, st)):
+        raise AssertionError("cheap kernel modified its input state")
+    check_cheap_facts(cfg, want, facts)
+    return dict(max_abs_err=worst, **facts)
+
+
+def check_cheap_facts(cfg, out, facts) -> None:
+    """What cheap_case must reach, read from the plain version's output
+    `out`."""
+    sl = cfg.n_cyc + 1
+    ev, ls = out.edge_valid.cpu(), out.locked_seq.cpu()
+    if not (ev[..., sl - 1].any() and ev[..., sl - 2].any()):
+        raise AssertionError("crafted cheap case: no edge in the last two "
+                             "slots")
+    if not (~ls[:, 0] & ls[:, -1]).any():
+        raise AssertionError("crafted cheap case: no channel locked "
+                             "inside the step")
+    if not (facts["compacted_blocks"] and facts["jump_blocks"]
+            and {0, cfg.code_samples - 1} <= set(facts["wipes"])):
+        raise AssertionError(f"crafted cheap case: {facts}")
+
+
 # --------------------------------------------------------------------------
 # the slice
-
-
-def _synth_part(scn, first, n):
-    from gps_sdr_tpu_torch.models.scenario import synth_scenario_blocks
-    return synth_scenario_blocks(scn, first, n, noise_std=NOISE)
-
-
-def synth_iq(scn, n_blocks: int, step: int):
-    """The scenario's IQ, synthesized in parallel threads (the synthesis
-    is numpy over whole arrays, which releases the GIL).  Threads, not
-    worker processes, so that the script starts no process that could
-    outlive it."""
-    import concurrent.futures as cf
-
-    import numpy as np
-
-    firsts = list(range(0, n_blocks, step))
-    workers = max(1, min(SYNTH_WORKERS, os.cpu_count() or 1, len(firsts)))
-    with cf.ThreadPoolExecutor(workers) as ex:
-        parts = list(ex.map(_synth_part, [scn] * len(firsts), firsts,
-                            [min(step, n_blocks - f) for f in firsts]))
-    return np.concatenate(parts)
 
 
 def _launch_counters():
@@ -394,6 +536,7 @@ def _check_fix(tag: str, scn, rx, summary) -> float:
 def run_slice(cfg) -> dict:
     """Phase 4: host-synthesized IQ through Session.run_source."""
     import torch
+    from gps_sdr_tpu_torch.kernel_profile import synth_iq
     from gps_sdr_tpu_torch.models.scenario import make_scenario
     from gps_sdr_tpu_torch.runtime.session import Session
 
@@ -534,13 +677,30 @@ def main() -> int:
     states, chunk, codes, ffts = make_case(cfg, cfg.max_sat, cfg.no_sec,
                                            seed=7, device=dev)
 
-    # 2. wipeoff kernel vs plain
+    # the tests' small configuration (cs 256, n_cyc 8, K=4, no_sec 128)
+    small = cfg.replace(code_samples=256, n_cyc=8, corr_avg=4,
+                        sweep_corr_avg=2, blocks_per_step=4,
+                        corr_q_window_sec=2)
+    small_case = make_case(small, 4, small.blocks_per_step, seed=5,
+                           device=dev)
+
+    # 2. wipeoff kernel vs plain, then crafted wipe delays
     w = check_wipeoff(cfg, states, chunk, 1, codes, ffts, timing=True)
     log(f"[2] wipeoff kernel vs plain: {json.dumps(w)}")
+    for tag, c2, (st2, ch2, co2, ff2) in (
+            ("product", cfg, (states, chunk, codes, ffts)),
+            ("small", small, small_case)):
+        cw = check_wipeoff(c2, st2, ch2, 0, co2, ff2,
+                           wipe=crafted_wipe(c2, st2.prn.shape[0]))
+        log(f"[2] wipeoff kernel, wipe delays 0, 1, 127, 128, cs-1, "
+            f"{tag}: max abs err {cw['max_abs_err']:.3g}")
 
-    # 3. cheap kernel vs plain
+    # 3. cheap kernel vs plain, then the crafted cases
     c = check_cheap_chain(cfg, states, chunk, codes, ffts, timing=True)
     log(f"[3] cheap kernel vs plain over 8 chained steps: {json.dumps(c)}")
+    for tag, c3, n3 in (("product", cfg, cfg.max_sat), ("small", small, 4)):
+        cc = check_cheap_case(c3, n3, 3, dev)
+        log(f"[3] cheap kernel, crafted case, {tag}: {json.dumps(cc)}")
 
     # 4. the replay slice
     sl = run_slice(cfg)

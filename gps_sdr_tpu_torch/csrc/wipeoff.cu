@@ -2,27 +2,61 @@
 //
 // Replaces gps_sdr_tpu/ops/pallas_kernels.py::_mxu_wipeoff_kernel (via
 // mix_wipeoff_mxu / heavy_stage_pallas).  The plain PyTorch twin and the
-// contract are in gps_sdr_tpu_torch/ops/hopper_wipeoff.py.
+// contract are in gps_sdr_tpu_torch/ops/hopper_wipeoff.py; the mirror of
+// this kernel's contraction form (input rounding included) is
+// _mix_wipeoff_mxu_math there.
 //
-// One CTA per (channel c, block b) of the step: grid (C, K).  Each CTA
-//   1. tabulates, per column i of a code period, the oscillator factor
-//      sincos(base_b + s*(i+1)) and the code rolled by the block's wipeoff
-//      delay w (rolled[i] = code[(i - w) mod cs]), and per code period q
-//      sincos(s*cs*q), in shared memory (the factorized NCO of the plain
-//      version: small angles per factor, sincosf and not __sincosf since
-//      the angles reach hundreds of radians);
-//   2. streams its block once, period by period: each thread mixes its
-//      columns, accumulates the full-period and head (i < w) wipeoff sums
-//      and, for the corr_avg center periods, the mean center period
-//      (thread-owned columns of the output, so no races);
-//   3. reduces the per-period sums over warps and writes head = lo[0] and
-//      seg[q] = hi[q] + lo[q+1] (the last segment has no following head).
+// The TPU kernel's factorization: with ang(q, i) = base_b + s*cs*q +
+// s*(i+1), every per-period wipeoff sum is a contraction of the RAW block
+// planes [n_cyc, cs] against weight rows code*cos(s(i+1)) and
+// code*sin(s(i+1)) (and their head-masked, i < w, variants), combined per
+// period with cos/sin(s*cs*q) and per block with cos/sin(base_b).
 //
-// Bound: bytes.  Every CTA reads one 512 KB block (product shapes); the C
-// channels of a block re-read it from L2.  Reading each block once for
-// all channels is the first thing a faster version changes.
+// Block-stationary: grid (K, cs / kTile), one thread-block cluster of
+// cs / kTile CTAs per block (16 at the product's cs = 2048, so the
+// cluster size is non-portable).  Each CTA
+//   1. loads the per-channel parameters, then stages its [n_cyc, kTile]
+//      complex64 slab of block step*K + b in shared memory with cp.async
+//      (rows padded to kRow = kTile + 4 complex, so fragment loads hit
+//      distinct banks) and gathers the codes rolled by the block's wipeoff
+//      delays, code[(i - w) mod cs], the same way; meanwhile it tabulates
+//      the oscillator factors (precise sincosf: the angles reach hundreds
+//      of radians);
+//   2. builds its weight columns in shared memory, split into TF32 high
+//      and low parts: (w1, w2) of every channel, and head-masked (w1, w2)
+//      only for the channels whose head boundary falls inside the tile
+//      (for the others the masked sum is the full one or zero), so the
+//      columns are ~2C, not 4C;
+//   3. takes the wipeoff sums as one tensor-core contraction [2*n_cyc rows
+//      (re, im) x kTile] x [kTile x columns, padded to a multiple of 8]:
+//      mma.sync m16n8k8 TF32 in the 3xTF32 split (lo*hi + hi*lo + hi*hi:
+//      f32-level error; single-pass TF32 misses the 1e-4 bound on noise-
+//      dominated channels); a 16-row tile holds the re and im rows of 8
+//      periods, so one float2 load gives two A values, and a warp's tiles
+//      share their rows, so it splits each A fragment once;
+//   4. rotates the sums per period and block into its share of head =
+//      lo[0] and seg[q] = (full[q] - lo[q]) + lo[q+1], in shared memory;
+//      after a cluster barrier each CTA adds, for a slice of the results,
+//      the n_tiles shares in tile order through distributed shared memory
+//      and writes head and seg.  No float atomics, no second kernel, no
+//      global scratch: every result is the same from run to run.  The
+//      barrier comes before the CTA's first global store, so its release
+//      fence waits on nothing;
+//   5. takes the mean center period in f32 on CUDA cores: a thread holds
+//      its column's center samples in registers and serves every channel,
+//      writing center [K, C, cs] once.
+//
+// Bound: bytes (product shapes: 4.2 MB of blocks in, 1.4 MB of center out
+// per K-step; ~0.1 GFLOP).  Each block leaves device memory once.  What
+// sets the time is a chain of dependent phases per CTA (loads, tables,
+// weights, mma, the cluster combine), each latency-bound; only 7 clusters
+// of 16 fit on the card at one CTA per SM, so the eighth shares SMs.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 struct WipeoffArgs {
   const float2* chunk;  // complex64 [T, n_cyc*cs], the whole chunk
@@ -41,123 +75,371 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 128;         // columns of a code period per CTA
+constexpr int kRow = kTile + 4;    // padded shared row (float2 or float)
+constexpr int kPairs = 2;          // mma tiles a warp runs together
+constexpr int kMaxTiles = 16;      // CTAs of a cluster (non-portable > 8)
+constexpr int kMaxCa = 16;         // center periods held in registers
 
-size_t smem_bytes(const WipeoffArgs& a) {
-  // cr, sr, rolled code [cs] + cq, sq [n_cyc] + warp partials
-  return sizeof(float) * (3 * (size_t)a.cs + 2 * (size_t)a.n_cyc +
-                          (size_t)kWarps * a.n_cyc * 4);
+// weight columns: full (w1, w2) of every channel, then head-masked
+// (w1, w2) of the channels whose head boundary falls inside the tile
+__host__ __device__ int n_pad(int n_cols) { return (n_cols + 7) / 8 * 8; }
+
+struct Smem {        // the CTA's dynamic shared memory
+  float2* x;         // [n_cyc][kRow] the slab
+  float* w_hi;       // [np][kRow] weight columns, TF32 high part; later
+                     // the tile's share of head/seg ([C][n_cyc+1] float2)
+  float* w_lo;       // [np][kRow] low part
+  float* cph;        // [C][kTile] cos(s*(i+1))
+  float* sph;        // [C][kTile] sin(s*(i+1))
+  float* code;       // [C][kTile] rolled codes; later lo, full (float2)
+  float* cq;         // [C][n_cyc] cos(s*cs*q)
+  float* sq;         // [C][n_cyc] sin(s*cs*q)
+  float2* cen;       // [C][kMaxCa] (cq, sq) of the center periods, zeros
+                     // past corr_avg
+  float* cb;         // [C] cos(base_b)
+  float* sb;         // [C] sin(base_b)
+  float* s;          // [C] rad/sample
+  int* w;            // [C] the block's wipeoff delay
+  int* split;        // [C + 1] count, then channels split by the tile
+};
+
+// Lay out the dynamic shared memory from `base` (every array on a 16-byte
+// boundary); returns its size in bytes.  m may be null (size only).
+__host__ __device__ size_t carve(const WipeoffArgs& a, float* base,
+                                 Smem* m) {
+  const size_t c = a.n_ch, nq = a.n_cyc, np = n_pad(4 * a.n_ch);
+  const size_t code = c * kTile > 4 * c * nq ? c * kTile : 4 * c * nq;
+  const size_t floats[] = {2 * nq * kRow, np * kRow, np * kRow,
+                           c * kTile,     c * kTile, code,
+                           c * nq,        c * nq,    2 * c * kMaxCa,
+                           c,             c,         c,
+                           c,             c + 1};
+  size_t off[14], n = 0;
+  for (int i = 0; i < 14; ++i) {
+    off[i] = n;
+    n += (floats[i] + 3) / 4 * 4;
+  }
+  if (m) {
+    m->x = reinterpret_cast<float2*>(base + off[0]);
+    m->w_hi = base + off[1];
+    m->w_lo = base + off[2];
+    m->cph = base + off[3];
+    m->sph = base + off[4];
+    m->code = base + off[5];
+    m->cq = base + off[6];
+    m->sq = base + off[7];
+    m->cen = reinterpret_cast<float2*>(base + off[8]);
+    m->cb = base + off[9];
+    m->sb = base + off[10];
+    m->s = base + off[11];
+    m->w = reinterpret_cast<int*>(base + off[12]);
+    m->split = reinterpret_cast<int*>(base + off[13]);
+  }
+  return n * sizeof(float);
+}
+
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+                 "l"(src), "n"(kBytes));
+}
+
+// x = hi + lo: hi is x rounded to TF32 (to nearest, ties away from zero,
+// as cvt.rna.tf32.f32, but in integer ALU operations); lo = x - hi is
+// exact in f32 and goes to the tensor core as it is (it reads the TF32
+// bits of lo).
+__device__ __forceinline__ void split(float x, float& hi, float& lo) {
+  hi = __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+  lo = x - hi;
+}
+
+__device__ __forceinline__ void mma_tf32(float* d, const float* a,
+                                         const float* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(__float_as_uint(a[0])), "r"(__float_as_uint(a[1])),
+        "r"(__float_as_uint(a[2])), "r"(__float_as_uint(a[3])),
+        "r"(__float_as_uint(b[0])), "r"(__float_as_uint(b[1])));
 }
 
 __global__ void __launch_bounds__(kThreads) wipeoff_kernel(WipeoffArgs a) {
-  extern __shared__ float smem[];
-  const int c = blockIdx.x, b = blockIdx.y;
-  const int cs = a.cs, n_cyc = a.n_cyc, k = a.k;
-  float* cr = smem;              // [cs]  cos(base_b + s*(i+1))
-  float* sr = cr + cs;           // [cs]  sin(...)
-  float* code = sr + cs;         // [cs]  rolled code
-  float* cq = code + cs;         // [n_cyc] cos(s*cs*q)
-  float* sq = cq + n_cyc;        // [n_cyc]
-  float* red = sq + n_cyc;       // [kWarps][n_cyc][4] warp partials
+  extern __shared__ __align__(16) float smem[];
+  Smem m;
+  carve(a, smem, &m);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int b = blockIdx.x, tile = blockIdx.y, n_tiles = gridDim.y;
+  const int cs = a.cs, n_cyc = a.n_cyc, n_ch = a.n_ch, k = a.k;
+  const int col0 = tile * kTile, sl = n_cyc + 1;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
-  const float s = a.s[c];
-  const float base = a.phase[c] + a.snp[c] * (float)b;
-  const int wipe = a.wipe[c * k + b];
-  const float* code_c = a.codes + (size_t)c * cs;
-  for (int i = threadIdx.x; i < cs; i += kThreads) {
-    float sn, cn;
-    sincosf(base + s * (float)(i + 1), &sn, &cn);
-    cr[i] = cn;
-    sr[i] = sn;
-    int src = i - wipe;
+  // 1. the per-channel parameters and the block's rotation, then the
+  //    slab, asynchronously (16 B = two samples a copy)
+  for (int c = tid; c < n_ch; c += kThreads) {
+    m.s[c] = a.s[c];
+    m.w[c] = a.wipe[c * k + b];
+    sincosf(a.phase[c] + a.snp[c] * (float)b, &m.sb[c], &m.cb[c]);
+  }
+  const float2* blk =
+      a.chunk + (size_t)(a.step * k + b) * n_cyc * cs + col0;
+  for (int v = tid; v < n_cyc * (kTile / 2); v += kThreads) {
+    const int q = v / (kTile / 2), j = 2 * (v % (kTile / 2));
+    cp_async<16>(m.x + q * kRow + j, blk + (size_t)q * cs + j);
+  }
+  __syncthreads();
+
+  // 2. the rolled codes, code[(i - w) mod cs], gathered asynchronously
+  //    too, and the channels whose head boundary (col < w) splits the
+  //    tile; meanwhile the oscillator tables (precise sincosf: the angles
+  //    reach hundreds of radians)
+  for (int v = tid; v < n_ch * kTile; v += kThreads) {
+    const int c = v / kTile, j = v % kTile;
+    int src = col0 + j - m.w[c];
     if (src < 0) src += cs;
-    code[i] = code_c[src];
+    cp_async<4>(m.code + v, a.codes + (size_t)c * cs + src);
   }
-  for (int q = threadIdx.x; q < n_cyc; q += kThreads) {
-    float sn, cn;
-    sincosf(s * (float)cs * (float)q, &sn, &cn);
-    cq[q] = cn;
-    sq[q] = sn;
+  asm volatile("cp.async.commit_group;\n" ::);
+  if (tid == 0) {
+    int n = 0;
+    for (int c = 0; c < n_ch; ++c)
+      if (col0 < m.w[c] && m.w[c] < col0 + kTile) m.split[1 + n++] = c;
+    m.split[0] = n;
   }
-  __syncthreads();
-
-  const float2* blk = a.chunk + (size_t)(a.step * k + b) * n_cyc * cs;
   const int first = (n_cyc - a.corr_avg) / 2;
-  const float inv_ca = 1.0f / (float)a.corr_avg;
-  float2* cen = a.center + ((size_t)b * a.n_ch + c) * cs;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int v = tid; v < n_ch * n_cyc; v += kThreads) {
+    const int c = v / n_cyc, q = v % n_cyc;
+    sincosf(m.s[c] * (float)cs * (float)q, &m.sq[v], &m.cq[v]);
+    if (q >= first && q < first + a.corr_avg)
+      m.cen[c * kMaxCa + q - first] = make_float2(m.cq[v], m.sq[v]);
+  }
+  for (int v = tid; v < n_ch * (kMaxCa - a.corr_avg); v += kThreads) {
+    const int u = a.corr_avg + v % (kMaxCa - a.corr_avg);
+    m.cen[(v / (kMaxCa - a.corr_avg)) * kMaxCa + u] = make_float2(0.f, 0.f);
+  }
+  for (int v = tid; v < n_ch * kTile; v += kThreads) {
+    const int c = v / kTile, j = v % kTile;
+    sincosf(m.s[c] * (float)(col0 + j + 1), &m.sph[v], &m.cph[v]);
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
 
-  for (int q = 0; q < n_cyc; ++q) {
-    const float cqq = cq[q], sqq = sq[q];
-    const bool in_center = q >= first && q < first + a.corr_avg;
-    float lo_re = 0.f, lo_im = 0.f, fu_re = 0.f, fu_im = 0.f;
-    for (int i = threadIdx.x; i < cs; i += kThreads) {
-      const float2 x = blk[(size_t)q * cs + i];
-      const float ore = cqq * cr[i] - sqq * sr[i];   // cos(ang)
-      const float oim = sqq * cr[i] + cqq * sr[i];   // sin(ang)
-      const float mre = x.x * ore + x.y * oim;       // x * exp(-i ang)
-      const float mim = x.y * ore - x.x * oim;
-      if (in_center) {
-        float2 acc = (q == first) ? make_float2(0.f, 0.f) : cen[i];
-        acc.x += mre * inv_ca;
-        acc.y += mim * inv_ca;
-        cen[i] = acc;
-      }
-      const float pre = mre * code[i], pim = mim * code[i];
-      fu_re += pre;
-      fu_im += pim;
-      if (i < wipe) {
-        lo_re += pre;
-        lo_im += pim;
-      }
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      lo_re += __shfl_down_sync(0xffffffffu, lo_re, off);
-      lo_im += __shfl_down_sync(0xffffffffu, lo_im, off);
-      fu_re += __shfl_down_sync(0xffffffffu, fu_re, off);
-      fu_im += __shfl_down_sync(0xffffffffu, fu_im, off);
-    }
-    if (lane == 0) {
-      float* r = red + ((size_t)warp * n_cyc + q) * 4;
-      r[0] = lo_re;
-      r[1] = lo_im;
-      r[2] = fu_re;
-      r[3] = fu_im;
-    }
+  // 3. the weight columns, split into TF32 high and low parts: rows 2c,
+  //    2c + 1 = code*cos, code*sin of channel c; rows 2C + 2i, 2C + 2i + 1
+  //    the same, head-masked, of split channel i; zero rows up to np
+  const int n_split = m.split[0];
+  const int n_cols = 2 * n_ch + 2 * n_split, np = n_pad(n_cols);
+  for (int v = tid; v < (n_ch + n_split) * kTile; v += kThreads) {
+    const int r = v / kTile, j = v % kTile;
+    const int c = r < n_ch ? r : m.split[1 + r - n_ch];
+    const int i = c * kTile + j;
+    const float code = (r < n_ch || col0 + j < m.w[c]) ? m.code[i] : 0.f;
+    const int row = 2 * r * kRow + j;
+    split(code * m.cph[i], m.w_hi[row], m.w_lo[row]);
+    split(code * m.sph[i], m.w_hi[row + kRow], m.w_lo[row + kRow]);
+  }
+  for (int v = tid; v < (np - n_cols) * kTile; v += kThreads) {
+    const int row = (n_cols + v / kTile) * kRow + v % kTile;
+    m.w_hi[row] = m.w_lo[row] = 0.f;
   }
   __syncthreads();
 
-  float* tot = cr;  // [n_cyc][4] totals; the tables are no longer read
-  for (int j = threadIdx.x; j < n_cyc * 4; j += kThreads) {
-    float acc = 0.f;
-    for (int w = 0; w < kWarps; ++w) acc += red[(size_t)w * n_cyc * 4 + j];
-    tot[j] = acc;
-  }
-  __syncthreads();
-
-  for (int q = threadIdx.x; q < n_cyc; q += kThreads) {
-    const float* t = tot + q * 4;  // lo_re, lo_im, full_re, full_im
-    float2 sg = make_float2(t[2] - t[0], t[3] - t[1]);
-    if (q + 1 < n_cyc) {
-      sg.x += tot[(q + 1) * 4];
-      sg.y += tot[(q + 1) * 4 + 1];
+  // 4. wipeoff sums on the tensor cores: mma tile (mt, nt) covers
+  //    periods 8mt..8mt+7 (rows: their re, then their im) against weight
+  //    columns 8nt..8nt+7, over the kTile columns, in three passes
+  //    (lo*hi + hi*lo into one accumulator, hi*hi into another).  A
+  //    warp's tiles share mt, so it splits each A fragment once.
+  float2* lo = reinterpret_cast<float2*>(m.code);   // [C][n_cyc]
+  float2* full = lo + n_ch * n_cyc;                  // [C][n_cyc]
+  {
+    const int g = lane / 4, t4 = lane % 4;
+    const int n_mt = n_cyc / 8, n_pairs = n_mt * (np / 8);
+    for (int p0 = warp; p0 < n_pairs; p0 += kPairs * kWarps) {
+      const int aoff = (8 * (p0 % n_mt) + g) * kRow + t4;
+      int boff[kPairs];
+      float big[kPairs][4], small[kPairs][4];
+#pragma unroll
+      for (int i = 0; i < kPairs; ++i) {
+        const int p = min(p0 + i * kWarps, n_pairs - 1);
+        boff[i] = (8 * (p / n_mt) + g) * kRow + t4;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) big[i][r] = small[i][r] = 0.f;
+      }
+#pragma unroll 4
+      for (int k0 = 0; k0 < kTile; k0 += 8) {
+        const float2 x0 = m.x[aoff + k0], x1 = m.x[aoff + k0 + 4];
+        float ah[4], al[4];
+        split(x0.x, ah[0], al[0]);
+        split(x0.y, ah[1], al[1]);
+        split(x1.x, ah[2], al[2]);
+        split(x1.y, ah[3], al[3]);
+        float bh[kPairs][2], bl[kPairs][2];
+#pragma unroll
+        for (int i = 0; i < kPairs; ++i) {
+          bh[i][0] = m.w_hi[boff[i] + k0], bh[i][1] = m.w_hi[boff[i] + k0 + 4];
+          bl[i][0] = m.w_lo[boff[i] + k0], bl[i][1] = m.w_lo[boff[i] + k0 + 4];
+        }
+#pragma unroll
+        for (int i = 0; i < kPairs; ++i) mma_tf32(small[i], al, bh[i]);
+#pragma unroll
+        for (int i = 0; i < kPairs; ++i) mma_tf32(big[i], ah, bh[i]);
+#pragma unroll
+        for (int i = 0; i < kPairs; ++i) mma_tf32(small[i], ah, bl[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < kPairs; ++i) {
+        // d = (re.w1, re.w2, im.w1, im.w2) of period q and weight column
+        // pair n / 2 (a channel's full or head-masked pair)
+        const int p = p0 + i * kWarps;
+        const int n = 8 * (p / n_mt) + 2 * t4, q = 8 * (p % n_mt) + g;
+        if (p >= n_pairs || n >= n_cols) continue;
+        const bool masked = n >= 2 * n_ch;
+        const int c = masked ? m.split[1 + n / 2 - n_ch] : n / 2;
+        float d[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) d[r] = big[i][r] + small[i][r];
+        const float e = d[0] + d[3], f = d[2] - d[1];  // sum x*w, re/im
+        const float cqq = m.cq[c * n_cyc + q], sqq = m.sq[c * n_cyc + q];
+        const float x = cqq * e + sqq * f, y = cqq * f - sqq * e;
+        const float2 r = make_float2(m.cb[c] * x + m.sb[c] * y,
+                                     m.cb[c] * y - m.sb[c] * x);
+        if (masked) {
+          lo[c * n_cyc + q] = r;
+        } else {
+          full[c * n_cyc + q] = r;
+          const int w = m.w[c];
+          if (!(col0 < w && w < col0 + kTile))   // the tile is all tail or
+            lo[c * n_cyc + q] =                  // all head
+                w >= col0 + kTile ? r : make_float2(0.f, 0.f);
+        }
+      }
     }
-    a.seg[((size_t)c * k + b) * n_cyc + q] = sg;
-    if (q == 0) a.head[(size_t)c * k + b] = make_float2(t[0], t[1]);
   }
+
+  // 5. this tile's share of head = lo[0] and seg[q] = (full[q] - lo[q])
+  //    + lo[q+1], into shared memory; the cluster (the block's n_tiles
+  //    CTAs, rank = tile) adds the tiles in tile order through
+  //    distributed shared memory, each CTA a slice of the results.  The
+  //    barrier comes before any global store of the CTA, so its release
+  //    fence has none to wait for.
+  __syncthreads();
+  float2* share = reinterpret_cast<float2*>(m.w_hi);   // [C][sl]
+  for (int v = tid; v < n_ch * sl; v += kThreads) {
+    const int c = v / sl, r = v % sl;
+    const float2* l = lo + c * n_cyc;
+    float2 o;
+    if (r == 0) {
+      o = l[0];
+    } else {
+      const float2 fu = full[c * n_cyc + r - 1];
+      o = make_float2(fu.x - l[r - 1].x, fu.y - l[r - 1].y);
+      if (r < n_cyc) {
+        o.x += l[r].x;
+        o.y += l[r].y;
+      }
+    }
+    share[v] = o;
+  }
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  for (int v = (int)cluster.block_rank() + n_tiles * tid; v < n_ch * sl;
+       v += n_tiles * kThreads) {
+    // every load issued at once: ranks past n_tiles repeat the last one
+    // and count zero (its shares are finite)
+    float2 x[kMaxTiles];
+#pragma unroll
+    for (int t = 0; t < kMaxTiles; ++t)
+      x[t] = cluster.map_shared_rank(share, min(t, n_tiles - 1))[v];
+    float2 acc = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int t = 0; t < kMaxTiles; ++t) {   // tile order
+      const float keep = t < n_tiles ? 1.f : 0.f;
+      acc.x += keep * x[t].x;
+      acc.y += keep * x[t].y;
+    }
+    const int c = v / sl, r = v % sl;
+    if (r == 0)
+      a.head[(size_t)c * k + b] = acc;
+    else
+      a.seg[((size_t)c * k + b) * n_cyc + r - 1] = acc;
+  }
+  // done reading the other CTAs' shares; none may leave before all are
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+
+  // 6. the mean center period, f32 on CUDA cores, written once: a
+  //    thread holds its column's center samples and serves every other
+  //    channel from registers
+  {
+    const float inv_ca = 1.0f / (float)a.corr_avg;
+    const int j = tid % kTile;
+    float2 xc[kMaxCa];
+#pragma unroll
+    for (int u = 0; u < kMaxCa; ++u)
+      xc[u] = u < a.corr_avg ? m.x[(first + u) * kRow + j]
+                             : make_float2(0.f, 0.f);
+    for (int c = tid / kTile; c < n_ch; c += kThreads / kTile) {
+      const float2* cw = m.cen + c * kMaxCa;      // zeros past corr_avg
+      float pr = 0.f, pi = 0.f;
+#pragma unroll
+      for (int u = 0; u < kMaxCa; ++u) {
+        const float2 w = cw[u];
+        pr += xc[u].x * w.x + xc[u].y * w.y;      // x * exp(-i s cs q)
+        pi += xc[u].y * w.x - xc[u].x * w.y;
+      }
+      const int i = c * kTile + j;
+      const float cp = m.cph[i], sp = m.sph[i];   // * exp(-i s (i+1))
+      const float ur = pr * cp + pi * sp, ui = pi * cp - pr * sp;
+      a.center[((size_t)b * n_ch + c) * cs + col0 + j] =
+          make_float2((m.cb[c] * ur + m.sb[c] * ui) * inv_ca,
+                      (m.cb[c] * ui - m.sb[c] * ur) * inv_ca);
+    }
+  }
+
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
 }  // namespace
 
 extern "C" int gsdr_wipeoff_launch(const WipeoffArgs* a, void* stream) {
-  const size_t smem = smem_bytes(*a);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        wipeoff_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+  const int n_tiles = a->cs / kTile;
+  // n_cyc / 8 must divide kWarps: a warp's mma tiles share their rows
+  if (a->cs % kTile != 0 || n_tiles > kMaxTiles || a->n_cyc <= 0 ||
+      a->n_cyc % 8 != 0 || kWarps % (a->n_cyc / 8) != 0 ||
+      a->corr_avg <= 0 || a->corr_avg > a->n_cyc ||
+      a->corr_avg > kMaxCa ||
+      reinterpret_cast<uintptr_t>(a->chunk) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = carve(*a, nullptr, nullptr);
+  cudaError_t e = cudaFuncSetAttribute(
+      wipeoff_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  if (n_tiles > 8) {
+    e = cudaFuncSetAttribute(wipeoff_kernel,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
     if (e != cudaSuccess) return (int)e;
   }
-  wipeoff_kernel<<<dim3(a->n_ch, a->k), kThreads, smem,
-                   (cudaStream_t)stream>>>(*a);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a->k, n_tiles, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = n_tiles;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, wipeoff_kernel, *a);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

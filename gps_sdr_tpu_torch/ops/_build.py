@@ -34,11 +34,10 @@ _P = ctypes.c_void_p
 class WipeoffArgs(ctypes.Structure):
     """csrc/wipeoff.cu struct WipeoffArgs."""
 
-    _fields_ = [("chunk", _P), ("codes", _P), ("s", _P), ("snp", _P),
-                ("phase", _P), ("wipe", _P), ("center", _P), ("head", _P),
-                ("seg", _P), ("n_ch", ctypes.c_int), ("k", ctypes.c_int),
-                ("step", ctypes.c_int), ("n_cyc", ctypes.c_int),
-                ("cs", ctypes.c_int), ("corr_avg", ctypes.c_int)]
+    _fields_ = [(name, _P) for name in (
+        "chunk", "codes", "s", "snp", "phase", "wipe", "center", "head",
+        "seg")] + [(name, ctypes.c_int) for name in (
+            "n_ch", "k", "step", "n_cyc", "cs", "corr_avg")]
 
 
 class WipeoffVpuArgs(ctypes.Structure):
@@ -50,16 +49,23 @@ class WipeoffVpuArgs(ctypes.Structure):
             "n_ch", "k", "step", "n_cyc", "cs", "corr_avg")]
 
 
+class CheapState(ctypes.Structure):
+    """csrc/cheap.cu struct CheapState."""
+
+    _fields_ = [(name, _P) for name in (
+        "carry_sum", "carry_cnt", "sign0", "prev_sign", "prev_signal",
+        "ms_time", "std_dev", "locked", "df_buf", "df_cnt", "df_idx",
+        "corr_buf", "corr_cnt", "corr_idx")]
+
+
 class CheapArgs(ctypes.Structure):
     """csrc/cheap.cu struct CheapArgs."""
 
-    _fields_ = [(name, _P) for name in (
-        "head", "seg", "delay", "wipe",
-        "carry_sum", "carry_cnt", "sign0", "prev_sign", "prev_signal",
-        "ms_time", "std_dev", "locked", "df_buf", "df_cnt", "df_idx",
-        "corr_buf", "corr_cnt", "corr_idx",
-        "dphi", "df_sum", "amplitude", "corr_q", "corr_l", "locked_seq",
-        "sign0_seq", "edge_ms", "edge_local", "edge_valid")] + [
+    _fields_ = [(name, _P) for name in ("head", "seg", "delay", "wipe")] + [
+        ("state_in", CheapState), ("state_out", CheapState)] + [
+        (name, _P) for name in (
+            "dphi", "df_sum", "amplitude", "corr_q", "corr_l", "locked_seq",
+            "sign0_seq", "edge_ms", "edge_local", "edge_valid")] + [
         (name, ctypes.c_int) for name in (
             "n_ch", "k", "n_cyc", "cs", "no_sec", "hist", "offset_avg")] + [
         (name, ctypes.c_float) for name in (

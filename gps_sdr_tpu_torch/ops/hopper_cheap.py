@@ -17,12 +17,17 @@ so ms_time past 2^24 and the +-1 ring sums are exact.
 
 What bounds it on the H100: latency, not bytes or flops.  A step moves
 ~40 KB and does a few thousand operations per channel, but each block
-depends on the previous one.  The kernel runs one CTA of 64 threads per
-channel (n_cyc+1 <= 33 slots per block), loops over the K blocks inside
-the kernel and keeps the channel's state in shared memory, so a step is
-one launch instead of the hundreds of small PyTorch ops of the plain
-version.  The per-slot work (means, rotation, arctan) runs one slot per
-thread; the prefix scans and sums over the 33 slots run in one thread.
+depends on the previous one's phase and frequency corrections.  The
+kernel runs one CTA of three warps per channel (lanes own means slots j
+and j + 32, so n_cyc+1 <= 64): two warps stage the step's inputs in
+shared memory and form every block's means before the retune rotation;
+then one warp runs the rotation and the PLL block after block, one
+follows it with the edge scan and amplitude, and one runs the
+correlation-quality ring; each block's loops are warp scans and
+reductions (shuffles, ballots).  A step is one launch instead of the
+hundreds of small PyTorch ops of the plain version.  The kernel reads
+the carried state and writes the new state, rings included, into fresh
+tensors: `st` is never modified and never copied.
 
 The plain PyTorch twin below computes the same results; a CPU tensor
 runs it, a CUDA tensor launches the kernel (or raises).
@@ -131,12 +136,15 @@ def cheap_scan(cfg: ReceiverConfig, k: int, head: torch.Tensor,
     head c64[C, K], seg c64[C, K, n_cyc]: wipeoff sums; delay i32[C, K]:
     measured correlator delays (a block is "found" where >= 0); wipe
     i32[C, K]: wipeoff boundary delays; st: the step's starting
-    ChannelState, already erased on a stream gap.  The kernel updates
-    clones of the carried state in place; `st` is not modified."""
+    ChannelState, already erased on a stream gap.  The kernel reads the
+    carried state and writes the new one into fresh tensors; `st` is not
+    modified."""
     if head.device.type == "cpu":
         return cheap_scan_plain(cfg, k, head, seg, delay, wipe, st)
     if head.device.type != "cuda":
         raise ValueError(f"cheap kernel: no path for {head.device}")
+    from gps_sdr_tpu_torch.ops.tracking import _STATE_DTYPES
+
     dev = head.device
     n_ch, n_cyc = head.shape[0], cfg.n_cyc
     sl = n_cyc + 1
@@ -152,14 +160,15 @@ def cheap_scan(cfg: ReceiverConfig, k: int, head: torch.Tensor,
                              f"on {dev}, got {v.dtype} {tuple(v.shape)}")
     head, seg, delay, wipe = (x.contiguous() for x in (head, seg, delay,
                                                         wipe))
-    carry = {name: getattr(st, name).clone(
-        memory_format=torch.contiguous_format) for name in _STATE}
-    if any(v.device != dev or v.shape[0] != n_ch for v in carry.values()) \
-            or carry["df_buf"].shape != (n_ch, cfg.no_sec) \
-            or carry["corr_buf"].shape != (n_ch, cfg.corr_hist_len):
+    state = {name: getattr(st, name).contiguous() for name in _STATE}
+    if any(v.device != dev or v.shape[0] != n_ch
+           or v.dtype != _STATE_DTYPES[name] for name, v in state.items()) \
+            or state["df_buf"].shape != (n_ch, cfg.no_sec) \
+            or state["corr_buf"].shape != (n_ch, cfg.corr_hist_len):
         raise ValueError("cheap kernel: state tensors must be on "
-                         f"{dev} with {n_ch} channels and rings sized "
-                         "by cfg")
+                         f"{dev} with {n_ch} channels, the ChannelState "
+                         "dtypes and rings sized by cfg")
+    new = {name: torch.empty_like(v) for name, v in state.items()}
 
     def f32(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
@@ -176,18 +185,19 @@ def cheap_scan(cfg: ReceiverConfig, k: int, head: torch.Tensor,
                                       device=dev),
                edge_valid=torch.empty((n_ch, k, sl), dtype=torch.bool,
                                       device=dev))
-    ptrs = [x.data_ptr() for x in (head, seg, delay, wipe)]
-    ptrs += [carry[name].data_ptr() for name in _STATE]
-    ptrs += [v.data_ptr() for v in out.values()]
     args = _build.CheapArgs(
-        *ptrs, n_ch, k, n_cyc, cfg.code_samples, cfg.no_sec,
+        *(x.data_ptr() for x in (head, seg, delay, wipe)),
+        _build.CheapState(*(state[name].data_ptr() for name in _STATE)),
+        _build.CheapState(*(new[name].data_ptr() for name in _STATE)),
+        *(v.data_ptr() for v in out.values()),
+        n_ch, k, n_cyc, cfg.code_samples, cfg.no_sec,
         cfg.corr_hist_len, cfg.pll_offset_avg, cfg.sample_rate,
         cfg.edge_sigma, cfg.pll_gain_locked, cfg.pll_gain_unlocked,
         cfg.pll_lock_threshold, cfg.pll_max_df_per_sec / cfg.no_sec,
         cfg.pll_phase_jump, cfg.ngps / cfg.sample_rate)
     _build.launch("cheap", args, dev)
     cheap_scan.launches += 1
-    return CheapOut(**carry, **out)
+    return CheapOut(**new, **out)
 
 
 cheap_scan.launches = 0

@@ -26,13 +26,20 @@ What they compute, per channel c and block b of K-block step `step`:
 What bounds them on the H100: bytes.  At the product shapes (C=11, K=8,
 n_cyc=32, cs=2048) a step reads 8 blocks of 512 KB and writes 1.4 MB of
 center periods; the arithmetic is ~20 flops per sample and channel
-(~0.11 GFLOP a step), so the bound is ~1.7 us either way.
-  * mix_wipeoff runs one CTA per (channel, block), 88 CTAs, and each CTA
-    reads its block once; the 11 channels of a block re-read it from L2
-    (4 MB of blocks against 50 MB of L2).
-  * mix_wipeoff_vpu is block-stationary like the TPU kernel: one CTA per
-    (block, 128-column tile) stages its slab in shared memory once and
-    loops over the channels, so each block leaves device memory once.
+(~0.11 GFLOP a step), so the bound is ~1.7 us either way.  Both kernels
+are block-stationary, as the TPU kernels are: one CTA per (block,
+128-column tile) stages its slab in shared memory once and serves every
+channel from it, so each block leaves device memory once.
+  * mix_wipeoff takes the TPU kernel's MXU factorization: the wipeoff
+    sums are one contraction of the slab's re/im rows against the
+    channels' weight columns, on the tensor cores (mma.sync TF32 in the
+    3xTF32 split); the center mean runs in f32 on CUDA cores; the CTAs
+    of a block form a thread-block cluster that adds the tiles' shares
+    in a fixed order through distributed shared memory, within the same
+    launch.  _mix_wipeoff_mxu_math mirrors that form on the CPU, input
+    rounding included.
+  * mix_wipeoff_vpu mixes element by element on CUDA cores, channel
+    after channel, and sums the tiles in a second kernel.
 
 The plain PyTorch versions below compute the same quantities with the
 same arithmetic; a CPU tensor runs them, a CUDA tensor launches the
@@ -48,6 +55,9 @@ from gps_sdr_tpu_torch.ops import _build, dsp
 
 # csrc/wipeoff_vpu.cu: columns per CTA (kTile) and threads per CTA
 VPU_TILE, VPU_THREADS = 128, 256
+# csrc/wipeoff.cu: columns per CTA (kTile), CTAs per cluster (kMaxTiles),
+# center periods held in registers (kMaxCa)
+MXU_TILE, MXU_MAX_TILES, MXU_MAX_CA = 128, 16, 16
 
 
 def _mix_wipeoff_math(cfg: ReceiverConfig, k: int, s: torch.Tensor,
@@ -95,6 +105,83 @@ def mix_wipeoff_plain(cfg: ReceiverConfig, k: int, s: torch.Tensor,
                              blocks.imag, codes)
 
 
+def _tf32(x: torch.Tensor, truncate: bool = False) -> torch.Tensor:
+    """f32 cut to TF32 (10 mantissa bits): rounded to nearest with ties
+    away from zero, as cvt.rna.tf32.f32 rounds, or with truncate=True
+    truncated, as the tensor core reads an f32 operand."""
+    bits = x.contiguous().view(torch.int32)
+    if not truncate:
+        bits = bits + 0x1000
+    return (bits & -0x2000).view(torch.float32)
+
+
+def _mix_wipeoff_mxu_math(cfg: ReceiverConfig, k: int, s: torch.Tensor,
+                          snp: torch.Tensor, phase: torch.Tensor,
+                          wipe: torch.Tensor, xr: torch.Tensor,
+                          xi: torch.Tensor, codes: torch.Tensor,
+                          rounding: str = "3xtf32"):
+    """CPU mirror of the csrc/wipeoff.cu contraction form, for the tests
+    (the main path never calls it).  Arguments and results as
+    _mix_wipeoff_math.  The wipeoff sums contract the raw re/im planes
+    against the weight columns code*cos(s(i+1)), code*sin(s(i+1)) and
+    their head-masked variants, with the tensor cores' input rounding:
+    "f32" (none), "tf32" (single pass) or "3xtf32", the kernel's: hi
+    rounded to TF32, lo = x - hi read as TF32 (truncated), and lo*hi +
+    hi*lo + hi*hi; then the per-period and per-block rotations.
+    The center mean is f32, as the kernel takes it on CUDA cores."""
+    cs, n_cyc, ca = cfg.code_samples, cfg.n_cyc, cfg.corr_avg
+    dev, f32 = xr.device, torch.float32
+    first = (n_cyc - ca) // 2
+    col = torch.arange(cs, dtype=f32, device=dev)
+    ang_i = s[:, None] * (col + 1.0)                           # [C, cs]
+    cph, sph = torch.cos(ang_i), torch.sin(ang_i)
+    ang_q = (s * cs)[:, None] * torch.arange(n_cyc, dtype=f32, device=dev)
+    cq, sq = torch.cos(ang_q)[:, None], torch.sin(ang_q)[:, None]
+    base = phase[:, None] + snp[:, None] * torch.arange(
+        k, dtype=f32, device=dev)                              # [C, K]
+    cb, sb = torch.cos(base)[..., None], torch.sin(base)[..., None]
+
+    rolled = dsp.roll_code(codes[:, None, :], wipe)            # [C, K, cs]
+    in_head = (col < wipe[..., None]).to(f32)
+    w1, w2 = rolled * cph[:, None], rolled * sph[:, None]
+    wts = torch.stack([w1, w2, w1 * in_head, w2 * in_head], dim=2)
+    x = torch.stack([xr, xi], dim=1)                     # [K, 2, n_cyc, cs]
+
+    def contract(xa, wa):          # [C, K, plane, q, weight column]
+        return torch.einsum("bpqi,cbji->cbpqj", xa, wa)
+
+    if rounding == "f32":
+        acc = contract(x, wts)
+    elif rounding == "tf32":
+        acc = contract(_tf32(x), _tf32(wts))
+    elif rounding == "3xtf32":
+        xh, wh = _tf32(x), _tf32(wts)
+        xl, wl = _tf32(x - xh, True), _tf32(wts - wh, True)
+        acc = contract(xl, wh) + contract(xh, wl) + contract(xh, wh)
+    else:
+        raise ValueError(f"rounding {rounding!r}: f32, tf32 or 3xtf32")
+
+    def rotated(j):                # sum over i of mixed * code (* mask)
+        e = acc[:, :, 0, :, j] + acc[:, :, 1, :, j + 1]
+        f = acc[:, :, 1, :, j] - acc[:, :, 0, :, j + 1]
+        xq, yq = cq * e + sq * f, cq * f - sq * e
+        return torch.complex(cb * xq + sb * yq, cb * yq - sb * xq)
+
+    full, lo = rotated(0), rotated(2)                      # [C, K, n_cyc]
+    seg = (full - lo) + torch.cat([lo[..., 1:],
+                                   torch.zeros_like(lo[..., :1])], dim=-1)
+
+    xc = x[:, :, first:first + ca][None]                # [1, K, 2, ca, cs]
+    cqc, sqc = cq[:, :, first:first + ca, None], sq[:, :, first:first + ca,
+                                                    None]
+    pr = (xc[:, :, 0] * cqc + xc[:, :, 1] * sqc).sum(dim=2)    # [C, K, cs]
+    pi = (xc[:, :, 1] * cqc - xc[:, :, 0] * sqc).sum(dim=2)
+    ur = pr * cph[:, None] + pi * sph[:, None]
+    ui = pi * cph[:, None] - pr * sph[:, None]
+    center = torch.complex(cb * ur + sb * ui, cb * ui - sb * ur) / ca
+    return center.transpose(0, 1).contiguous(), lo[..., 0], seg
+
+
 def mix_wipeoff_vpu_plain(cfg: ReceiverConfig, k: int, s: torch.Tensor,
                           snp: torch.Tensor, phase: torch.Tensor,
                           wipe: torch.Tensor, chunk: torch.Tensor,
@@ -137,11 +224,22 @@ def mix_wipeoff(cfg: ReceiverConfig, k: int, s: torch.Tensor,
     if step < 0 or (step + 1) * k > t:
         raise ValueError(f"wipeoff kernel: step {step} x K={k} outside "
                          f"a chunk of {t} blocks")
+    if cs % MXU_TILE or cs // MXU_TILE > MXU_MAX_TILES \
+            or n_cyc not in (8, 16, 32, 64) \
+            or not 0 < cfg.corr_avg <= min(n_cyc, MXU_MAX_CA):
+        raise ValueError(
+            f"wipeoff kernel: needs cs a multiple of {MXU_TILE} up to "
+            f"{MXU_TILE * MXU_MAX_TILES}, n_cyc in 8, 16, 32, 64 and 0 < "
+            f"corr_avg <= min(n_cyc, {MXU_MAX_CA}) (cs={cs}, n_cyc={n_cyc}, "
+            f"corr_avg={cfg.corr_avg})")
     _check(chunk, "chunk", torch.complex64, (t, cfg.ngps), dev)
     _check(codes, "codes", torch.float32, (n_ch, cs), dev)
     for name, v in (("s", s), ("snp", snp), ("phase", phase)):
         _check(v, name, torch.float32, (n_ch,), dev)
     _check(wipe, "wipe", torch.int32, (n_ch, k), dev)
+    if chunk.data_ptr() % 16:
+        raise ValueError("wipeoff kernel: chunk must start on a 16-byte "
+                         "boundary (cp.async staging)")
     center = torch.empty((k, n_ch, cs), dtype=torch.complex64, device=dev)
     head = torch.empty((n_ch, k), dtype=torch.complex64, device=dev)
     seg = torch.empty((n_ch, k, n_cyc), dtype=torch.complex64, device=dev)

@@ -21,13 +21,14 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from gps_sdr_tpu.config import ReceiverConfig as JaxConfig
 from gps_sdr_tpu.ops import tracking as jtrk
 from gps_sdr_tpu.ops.pallas_cheap import cheap_stage_pallas
 from gps_sdr_tpu_torch.config import ReceiverConfig
 from gps_sdr_tpu_torch.models.simulator import (SatSignal, random_bits,
                                                 synth_stream)
-from gps_sdr_tpu_torch.ops import cacode
+from gps_sdr_tpu_torch.ops import cacode, hopper_cheap
 from gps_sdr_tpu_torch.ops import tracking as ttrk
 
 torch.set_num_threads(2)
@@ -209,3 +210,27 @@ def test_erase_on_gap():
     assert out.erased[:, 0].all() and not out.erased[:, 1:].any()
     for ref in refs:
         _compare(got, ref)
+
+
+@pytest.mark.parametrize("ref", ["xla", "pallas"])
+def test_crafted_case_matches_jax(ref):
+    """chip_smoke.cheap_case, the card's crafted case for the cheap
+    kernel (sign flips in the last two slots, PLL unwrap steps, wipe
+    delays 0 and cs - 1 with slot compaction, channels locking inside the
+    step, full wrapped rings at no_sec = 128), through the port's plain
+    version and the JAX cheap stage."""
+    args, facts = chip_smoke.cheap_case(CFG, 4, 3, "cpu")
+    _, k, head, seg, delay, wipe, st = args
+    chip_smoke.check_cheap_facts(CFG, hopper_cheap.cheap_scan_plain(*args),
+                                 facts)
+    n_ch = head.shape[0]
+    zeros = jnp.zeros((n_ch, k), jnp.float32)
+    heavy = jtrk.HeavyOut(
+        delay_k=jnp.asarray(delay.numpy()), code_phase_k=zeros,
+        norm_max_k=zeros, new_delay_k=jnp.asarray(delay.numpy()),
+        head_k=jnp.asarray(head.numpy()), seg_sums_k=jnp.asarray(seg.numpy()),
+        phase_end=jnp.zeros((n_ch,), jnp.float32),
+        wipe_delay=jnp.asarray(wipe.numpy()))
+    states = jtrk.unpack_states(ttrk.states_to_numpy(st))
+    got, refs = _three_ways(states, heavy, 1)
+    _compare(got, refs[ref == "pallas"])

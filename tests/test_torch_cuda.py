@@ -6,8 +6,9 @@ NVIDIA GPU and skip without one; run them there with
 
 (--noconftest: tests/conftest.py configures JAX, which a machine that
 runs only the port need not have.)  The cases and tolerances are
-chip_smoke.py's (check_wipeoff for both wipeoff kernels,
-check_cheap_chain), here also at the small test configuration, plus the
+chip_smoke.py's (check_wipeoff for both wipeoff kernels, with crafted
+wipe delays for kernel 1, check_cheap_chain and check_cheap_case), here
+also at the small test configuration, plus the
 slice with the kernels against the slice with their plain versions, and
 the slice on the card (run and run_device) against the slice on the
 CPU."""
@@ -50,6 +51,18 @@ def test_wipeoff_kernel_matches_plain(cuda, cfg, n_ch):
 
 @pytest.mark.parametrize("cfg,n_ch", [(SMALL, 2), (PRODUCT, 11)],
                          ids=["small", "product"])
+def test_wipeoff_kernel_crafted_delays(cuda, cfg, n_ch):
+    """Wipe delays 0, 1, 127, 128 and cs - 1: the head mask and the roll
+    on both sides of the kernel's 128-column tile edge."""
+    st, chunk, codes, ffts = chip_smoke.make_case(cfg, n_ch,
+                                                  cfg.blocks_per_step,
+                                                  seed=5, device=cuda)
+    chip_smoke.check_wipeoff(cfg, st, chunk, 0, codes, ffts,
+                             wipe=chip_smoke.crafted_wipe(cfg, n_ch))
+
+
+@pytest.mark.parametrize("cfg,n_ch", [(SMALL, 2), (PRODUCT, 11)],
+                         ids=["small", "product"])
 def test_wipeoff_vpu_kernel_matches_plain(cuda, cfg, n_ch):
     st, chunk, codes, ffts = chip_smoke.make_case(cfg, n_ch, 3 *
                                                   cfg.blocks_per_step,
@@ -67,6 +80,15 @@ def test_cheap_kernel_matches_plain(cuda, cfg, n_ch):
                                                   seed=5, device=cuda)
     res = chip_smoke.check_cheap_chain(cfg, st, chunk, codes, ffts)
     assert res["edges"] > 0
+
+
+@pytest.mark.parametrize("cfg,n_ch", [(SMALL, 4), (PRODUCT, 11)],
+                         ids=["small", "product"])
+def test_cheap_kernel_crafted_case(cuda, cfg, n_ch):
+    """chip_smoke.cheap_case: edges in the last two slots, PLL unwrap
+    steps, slot compaction, channels locking inside the step, full
+    wrapped rings; the kernel leaves its input state unchanged."""
+    chip_smoke.check_cheap_case(cfg, n_ch, 3, cuda)
 
 
 SATS = [SatSignal(prn=5, doppler=987.0, code_delay=77.25,

@@ -145,3 +145,96 @@ def test_plain_wipeoff_matches_numpy_definition():
             np.testing.assert_allclose(
                 center[b, c].numpy(),
                 mixed[first:first + CFG.corr_avg].mean(axis=0), atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's contraction form (_mix_wipeoff_mxu_math), on the CPU
+
+
+def _mxu_case(cfg, delays, k):
+    """Two channels of SATS' stream at `cfg`: (s, snp, phase, wipe, re and
+    im planes [k, n_cyc, cs], codes), with wipe delays `delays` (one row
+    of k per channel)."""
+    blocks = synth_stream(cfg, SATS, k, noise_std=0.5, seed=9)
+    planes = torch.from_numpy(blocks).reshape(k, cfg.n_cyc,
+                                              cfg.code_samples)
+    codes = torch.from_numpy(np.stack([cacode.ca_table(cfg)[s.prn]
+                                       for s in SATS]))
+    freq = torch.tensor([s.doppler for s in SATS], dtype=torch.float32)
+    s = 2 * np.pi * freq / cfg.sample_rate
+    snp = torch.remainder(s * cfg.ngps, 2 * np.pi)
+    phase = torch.tensor([0.3, 5.9], dtype=torch.float32)
+    wipe = torch.tensor(delays, dtype=torch.int32)
+    return s, snp, phase, wipe, planes.real, planes.imag, codes
+
+
+def _jax_mxu(cfg, k, s, snp, phase, wipe, xr, xi, codes):
+    """The JAX package's mix_wipeoff_mxu (Pallas, interpret mode on the
+    CPU) on the same inputs, its inputs built as heavy_stage_pallas
+    builds them: (center [k, C, cs], head [C, k], seg [C, k, n_cyc])."""
+    from gps_sdr_tpu.ops.pallas_kernels import mix_wipeoff_mxu
+
+    cs, n_cyc, ca = cfg.code_samples, cfg.n_cyc, cfg.corr_avg
+    s, snp, phase = (jnp.asarray(v.numpy()) for v in (s, snp, phase))
+    params = jnp.stack([s, phase, snp, jnp.zeros_like(s)], axis=1)
+    base = phase[None, :] + snp[None, :] * jnp.arange(
+        k, dtype=jnp.float32)[:, None]
+    rotrow = jnp.stack([jnp.cos(base), jnp.sin(base)], axis=1)
+    q = jnp.arange(n_cyc, dtype=jnp.float32)
+    angq = s[:, None] * jnp.float32(cs) * q[None, :]
+    first = (n_cyc - ca) // 2
+    cmask = (((q >= first) & (q < first + ca)).astype(jnp.float32)
+             / jnp.float32(ca))[None, :]
+    g = jnp.concatenate([jnp.cos(angq) * cmask, jnp.sin(angq) * cmask])
+    cqsq = jnp.stack([jnp.cos(angq).T, jnp.sin(angq).T])
+    blocks2 = jnp.asarray(np.stack([xr.numpy(), xi.numpy()], axis=1))
+    cre, cim, sums = mix_wipeoff_mxu(
+        _jax(cfg), k, jnp.zeros((1,), jnp.int32), params,
+        jnp.asarray(wipe.numpy()), rotrow, rotrow.reshape(k, -1, 1), g,
+        cqsq, blocks2, jnp.asarray(codes.numpy()))
+    sl = n_cyc + 1
+    sums = np.asarray(sums)
+    center = np.asarray(cre) + 1j * np.asarray(cim)
+    head = (sums[:, 0] + 1j * sums[:, sl]).T
+    seg = np.transpose(sums[:, 1:sl] + 1j * sums[:, sl + 1:2 * sl],
+                       (2, 0, 1))
+    return center, head, seg
+
+
+def _within(got, want, rel=1e-4):
+    """check_wipeoff's bound: max abs error <= rel x the largest
+    magnitude, part by part (center, head, seg)."""
+    for name, g, w in zip(("center", "head", "seg"), got, want):
+        g, w = np.asarray(g), np.asarray(w)
+        err, scale = np.abs(g - w).max(), np.abs(w).max()
+        assert err <= rel * scale, f"{name}: {err:.3g} > {rel} x {scale:.3g}"
+
+
+# wipe delays 0, 1, 128 and 255 (cs = 256) on both sides of the kernel's
+# 128-column tile edge, for the roll and the head mask
+@pytest.mark.parametrize("delays", [((0, 255, 1, 128), (255, 0, 128, 1)),
+                                    ((1, 127, 128, 0), (128, 129, 255, 2))])
+def test_mxu_mirror_matches_jax_and_plain(delays):
+    args = _mxu_case(CFG, delays, K)
+    got = hopper_wipeoff._mix_wipeoff_mxu_math(CFG, K, *args, "3xtf32")
+    _within(got, _jax_mxu(CFG, K, *args))
+    _within(got, hopper_wipeoff._mix_wipeoff_math(CFG, K, *args))
+
+
+@pytest.mark.parametrize("rounding,meets", [("f32", True), ("3xtf32", True),
+                                             ("tf32", False)])
+def test_mxu_mirror_meets_card_bound_at_product_shapes(rounding, meets):
+    """At the product's cs and n_cyc (2 channels, K=2, noise 0.5), the
+    kernel's input rounding (3xTF32) keeps center, head and seg within
+    check_wipeoff's 1e-4 of the largest magnitude of the plain version's;
+    single-pass TF32 does not, which is why the kernel splits."""
+    cfg = ReceiverConfig()
+    cs = cfg.code_samples
+    args = _mxu_case(cfg, ((0, cs - 1), (128, 127)), 2)
+    got = hopper_wipeoff._mix_wipeoff_mxu_math(cfg, 2, *args, rounding)
+    want = hopper_wipeoff._mix_wipeoff_math(cfg, 2, *args)
+    if meets:
+        _within(got, want)
+    else:
+        with pytest.raises(AssertionError):
+            _within(got, want)
