@@ -26,8 +26,9 @@ Phases (any failure raises and the script exits non-zero):
      at least 4 ephemerides must decode and the mean fix must be within
      8 m of the truth;
   5. the wipeoff_vpu kernel (csrc/wipeoff_vpu.cu) against its plain
-     version on the card, on the phase-2 case in the grouped planar
-     layout, with phase 2's tolerances;
+     version on the card, on the phase-2 cases in the grouped planar
+     layout (the predicted delays, then the crafted ones at the product
+     and the small configuration), with phase 2's tolerances;
   6. the device-resident slice: the same scenario synthesized on the
      card (models/scenario_dev.py) and run through
      Session.run_device_source with ReceiverConfig(use_mxu_wipeoff=False)
@@ -709,6 +710,13 @@ def main() -> int:
     v = check_wipeoff(cfg, states, chunk, 1, codes, ffts, timing=True,
                       vpu=True)
     log(f"[5] wipeoff_vpu kernel vs plain: {json.dumps(v)}")
+    for tag, c5, (st5, ch5, co5, ff5) in (
+            ("product", cfg, (states, chunk, codes, ffts)),
+            ("small", small, small_case)):
+        cv = check_wipeoff(c5, st5, ch5, 0, co5, ff5, vpu=True,
+                           wipe=crafted_wipe(c5, st5.prn.shape[0]))
+        log(f"[5] wipeoff_vpu kernel, wipe delays 0, 1, 127, 128, cs-1, "
+            f"{tag}: max abs err {cv['max_abs_err']:.3g}")
 
     # 6. the device-resident slice
     ds = run_device_slice(cfg)

@@ -153,7 +153,7 @@ def profile_kernels(cfg, dev, reps: int = 50) -> dict:
     }
     # device-side names of each wrapper's kernels (csrc/*.cu)
     names = {"wipeoff": ("wipeoff_kernel",),
-             "wipeoff_vpu": ("wipeoff_vpu_kernel", "wipeoff_vpu_finish"),
+             "wipeoff_vpu": ("wipeoff_vpu_kernel",),
              "cheap": ("cheap_kernel",), "cheap_slice": ("cheap_kernel",)}
     out = {}
     for name, fn in calls.items():

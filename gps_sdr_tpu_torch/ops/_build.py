@@ -44,8 +44,8 @@ class WipeoffVpuArgs(ctypes.Structure):
     """csrc/wipeoff_vpu.cu struct WipeoffVpuArgs."""
 
     _fields_ = [(name, _P) for name in (
-        "chunk", "codes", "s", "snp", "phase", "wipe", "center", "part",
-        "head", "seg")] + [(name, ctypes.c_int) for name in (
+        "chunk", "codes", "s", "snp", "phase", "wipe", "center", "head",
+        "seg")] + [(name, ctypes.c_int) for name in (
             "n_ch", "k", "step", "n_cyc", "cs", "corr_avg")]
 
 

@@ -29,17 +29,27 @@ center periods; the arithmetic is ~20 flops per sample and channel
 (~0.11 GFLOP a step), so the bound is ~1.7 us either way.  Both kernels
 are block-stationary, as the TPU kernels are: one CTA per (block,
 128-column tile) stages its slab in shared memory once and serves every
-channel from it, so each block leaves device memory once.
+channel from it, so each block leaves device memory once; and both are
+one launch: the CTAs of a block form a thread-block cluster that adds
+the tiles' shares of head and seg in a fixed order through distributed
+shared memory (no second kernel, no global scratch, no float atomics).
   * mix_wipeoff takes the TPU kernel's MXU factorization: the wipeoff
     sums are one contraction of the slab's re/im rows against the
     channels' weight columns, on the tensor cores (mma.sync TF32 in the
-    3xTF32 split); the center mean runs in f32 on CUDA cores; the CTAs
-    of a block form a thread-block cluster that adds the tiles' shares
-    in a fixed order through distributed shared memory, within the same
-    launch.  _mix_wipeoff_mxu_math mirrors that form on the CPU, input
-    rounding included.
-  * mix_wipeoff_vpu mixes element by element on CUDA cores, channel
-    after channel, and sums the tiles in a second kernel.
+    3xTF32 split); the center mean runs in f32 on CUDA cores.
+    _mix_wipeoff_mxu_math mirrors that form on the CPU, input rounding
+    included.
+  * mix_wipeoff_vpu stays in f32 on CUDA cores.  What held its first
+    version back was latency, not arithmetic (a serial channel loop with
+    three barriers and a round of dependent global loads per channel),
+    so the kernel builds the tables of all channels at once while the
+    slab copy is in flight (one code gather, one sincosf per (channel,
+    column), weights code * exp(-i (base_b + s (i+1)))), then runs a
+    main loop without barriers or global loads in which a thread holds
+    a few periods' columns in registers and serves every channel,
+    rotating each period's sums once by exp(-i s cs q), while helper
+    warps take the center mean beside it.  _mix_wipeoff_vpu_math mirrors
+    that order of arithmetic on the CPU.
 
 The plain PyTorch versions below compute the same quantities with the
 same arithmetic; a CPU tensor runs them, a CUDA tensor launches the
@@ -53,8 +63,11 @@ import torch
 from gps_sdr_tpu_torch.config import ReceiverConfig
 from gps_sdr_tpu_torch.ops import _build, dsp
 
-# csrc/wipeoff_vpu.cu: columns per CTA (kTile) and threads per CTA
-VPU_TILE, VPU_THREADS = 128, 256
+# csrc/wipeoff_vpu.cu: columns per CTA (kTile), CTAs per cluster
+# (kMaxTiles), center periods held in registers (kMaxCa), channels whose
+# tables the CTA's shared memory holds (kMaxCh), code periods per block
+VPU_TILE, VPU_MAX_TILES, VPU_MAX_CA, VPU_MAX_CH = 128, 16, 16, 16
+VPU_N_CYC = (8, 16, 32, 64)
 # csrc/wipeoff.cu: columns per CTA (kTile), CTAs per cluster (kMaxTiles),
 # center periods held in registers (kMaxCa)
 MXU_TILE, MXU_MAX_TILES, MXU_MAX_CA = 128, 16, 16
@@ -182,6 +195,56 @@ def _mix_wipeoff_mxu_math(cfg: ReceiverConfig, k: int, s: torch.Tensor,
     return center.transpose(0, 1).contiguous(), lo[..., 0], seg
 
 
+def _mix_wipeoff_vpu_math(cfg: ReceiverConfig, k: int, s: torch.Tensor,
+                          snp: torch.Tensor, phase: torch.Tensor,
+                          wipe: torch.Tensor, xr: torch.Tensor,
+                          xi: torch.Tensor, codes: torch.Tensor):
+    """CPU mirror of the csrc/wipeoff_vpu.cu order of arithmetic, for the
+    tests (the main path never calls it).  Arguments and results as
+    _mix_wipeoff_math.  All in f32: the raw re/im planes are summed over
+    the columns against the weights code * (cos, sin)(base_b + s(i+1))
+    (the head sums over the columns i < w only), each period's sums are
+    then rotated once by exp(-i s cs q); the center periods are summed
+    against exp(-i s cs q) and rotated once per column."""
+    cs, n_cyc, ca = cfg.code_samples, cfg.n_cyc, cfg.corr_avg
+    dev, f32 = xr.device, torch.float32
+    first = (n_cyc - ca) // 2
+    col = torch.arange(cs, dtype=f32, device=dev)
+    base = phase[:, None] + snp[:, None] * torch.arange(
+        k, dtype=f32, device=dev)                              # [C, K]
+    ang_r = base[..., None] + s[:, None, None] * (col + 1.0)   # [C, K, cs]
+    cr, sr = torch.cos(ang_r), torch.sin(ang_r)
+    ang_q = (s * cs)[:, None] * torch.arange(n_cyc, dtype=f32, device=dev)
+    cq, sq = torch.cos(ang_q)[:, None], torch.sin(ang_q)[:, None]  # [C,1,n]
+
+    rolled = dsp.roll_code(codes[:, None, :], wipe)            # [C, K, cs]
+    wr, wi = rolled * cr, rolled * sr
+    in_head = (col < wipe[..., None]).to(f32)
+
+    def sums(ar, ai):              # sum over i of x * (ar - i ai)
+        re = torch.einsum("bqi,cbi->cbq", xr, ar) \
+            + torch.einsum("bqi,cbi->cbq", xi, ai)
+        im = torch.einsum("bqi,cbi->cbq", xi, ar) \
+            - torch.einsum("bqi,cbi->cbq", xr, ai)
+        return re, im
+
+    fr, fi = sums(wr, wi)                                  # [C, K, n_cyc]
+    lr, li = sums(wr * in_head, wi * in_head)
+    hr, hi = fr - lr, fi - li
+    hi_rot = torch.complex(cq * hr + sq * hi, cq * hi - sq * hr)
+    lo = torch.complex(cq * lr + sq * li, cq * li - sq * lr)
+    seg = hi_rot + torch.cat([lo[..., 1:], torch.zeros_like(lo[..., :1])],
+                             dim=-1)
+
+    xcr, xci = xr[None, :, first:first + ca], xi[None, :, first:first + ca]
+    cqc = cq[:, :, first:first + ca, None]                  # [C, 1, ca, 1]
+    sqc = sq[:, :, first:first + ca, None]
+    pr = (xcr * cqc + xci * sqc).sum(dim=2)                    # [C, K, cs]
+    pi = (xci * cqc - xcr * sqc).sum(dim=2)
+    center = torch.complex(cr * pr + sr * pi, cr * pi - sr * pr) * (1.0 / ca)
+    return center.transpose(0, 1).contiguous(), lo[..., 0], seg
+
+
 def mix_wipeoff_vpu_plain(cfg: ReceiverConfig, k: int, s: torch.Tensor,
                           snp: torch.Tensor, phase: torch.Tensor,
                           wipe: torch.Tensor, chunk: torch.Tensor,
@@ -256,6 +319,26 @@ def mix_wipeoff(cfg: ReceiverConfig, k: int, s: torch.Tensor,
 mix_wipeoff.launches = 0
 
 
+def _vpu_limits(cfg: ReceiverConfig, n_ch: int, chunk_ptr: int) -> None:
+    """Raise on what csrc/wipeoff_vpu.cu does not take: the configuration,
+    the number of channels, the address of the chunk."""
+    cs, n_cyc, ca = cfg.code_samples, cfg.n_cyc, cfg.corr_avg
+    if cs % VPU_TILE or not 0 < cs // VPU_TILE <= VPU_MAX_TILES \
+            or n_cyc not in VPU_N_CYC \
+            or not 0 < ca <= min(n_cyc, VPU_MAX_CA) \
+            or not 0 < n_ch <= VPU_MAX_CH:
+        raise ValueError(
+            f"wipeoff_vpu kernel: needs cs a multiple of {VPU_TILE} up to "
+            f"{VPU_TILE * VPU_MAX_TILES} (one cluster of column tiles per "
+            f"block), n_cyc in {VPU_N_CYC}, 0 < corr_avg <= min(n_cyc, "
+            f"{VPU_MAX_CA}) and 1 to {VPU_MAX_CH} channels (the tables in "
+            f"shared memory); got cs={cs}, n_cyc={n_cyc}, corr_avg={ca}, "
+            f"{n_ch} channels")
+    if chunk_ptr % 16:
+        raise ValueError("wipeoff_vpu kernel: chunk must start on a "
+                         "16-byte boundary (cp.async staging)")
+
+
 def mix_wipeoff_vpu(cfg: ReceiverConfig, k: int, s: torch.Tensor,
                     snp: torch.Tensor, phase: torch.Tensor,
                     wipe: torch.Tensor, chunk: torch.Tensor, step: int,
@@ -278,26 +361,20 @@ def mix_wipeoff_vpu(cfg: ReceiverConfig, k: int, s: torch.Tensor,
     if step < 0 or (step + 1) * k > t:
         raise ValueError(f"wipeoff_vpu kernel: step {step} x K={k} outside "
                          f"a chunk of {t} blocks")
-    if cs % VPU_TILE or VPU_THREADS % n_cyc or not 0 < cfg.corr_avg <= n_cyc:
-        raise ValueError(f"wipeoff_vpu kernel: needs cs % {VPU_TILE} == 0, "
-                         f"n_cyc dividing {VPU_THREADS} and 0 < corr_avg <= "
-                         f"n_cyc (cs={cs}, n_cyc={n_cyc}, "
-                         f"corr_avg={cfg.corr_avg})")
+    _vpu_limits(cfg, n_ch, chunk.data_ptr())
     _check(chunk, "chunk", torch.float32, (t, 2, n_cyc, cs), dev)
     _check(codes, "codes", torch.float32, (n_ch, cs), dev)
     for name, v in (("s", s), ("snp", snp), ("phase", phase)):
         _check(v, name, torch.float32, (n_ch,), dev)
     _check(wipe, "wipe", torch.int32, (n_ch, k), dev)
     center = torch.empty((k, n_ch, cs), dtype=torch.complex64, device=dev)
-    part = torch.empty((k, cs // VPU_TILE, n_ch, n_cyc, 4),
-                       dtype=torch.float32, device=dev)
     head = torch.empty((n_ch, k), dtype=torch.complex64, device=dev)
     seg = torch.empty((n_ch, k, n_cyc), dtype=torch.complex64, device=dev)
     args = _build.WipeoffVpuArgs(
         chunk.data_ptr(), codes.data_ptr(), s.data_ptr(), snp.data_ptr(),
         phase.data_ptr(), wipe.data_ptr(), center.data_ptr(),
-        part.data_ptr(), head.data_ptr(), seg.data_ptr(), n_ch, k, step,
-        n_cyc, cs, cfg.corr_avg)
+        head.data_ptr(), seg.data_ptr(), n_ch, k, step, n_cyc, cs,
+        cfg.corr_avg)
     _build.launch("wipeoff_vpu", args, dev)
     mix_wipeoff_vpu.launches += 1
     return center, head, seg

@@ -7,7 +7,7 @@ NVIDIA GPU and skip without one; run them there with
 (--noconftest: tests/conftest.py configures JAX, which a machine that
 runs only the port need not have.)  The cases and tolerances are
 chip_smoke.py's (check_wipeoff for both wipeoff kernels, with crafted
-wipe delays for kernel 1, check_cheap_chain and check_cheap_case), here
+wipe delays, check_cheap_chain and check_cheap_case), here
 also at the small test configuration, plus the
 slice with the kernels against the slice with their plain versions, and
 the slice on the card (run and run_device) against the slice on the
@@ -70,6 +70,47 @@ def test_wipeoff_vpu_kernel_matches_plain(cuda, cfg, n_ch):
     for step in (0, 2):
         chip_smoke.check_wipeoff(cfg, st, chunk, step, codes, ffts,
                                  vpu=True)
+
+
+@pytest.mark.parametrize("n_ch", [1, 4, 11, 12])
+@pytest.mark.parametrize("cfg", [SMALL, PRODUCT], ids=["small", "product"])
+def test_wipeoff_vpu_kernel_crafted_delays(cuda, cfg, n_ch):
+    """Wipe delays 0, 1, 127, 128 and cs - 1 (the head mask and the roll
+    on both sides of the kernel's 128-column tile edge), for 1 to 12
+    channels: an odd and an even number of table rounds per thread, and
+    one more channel than the product runs."""
+    st, chunk, codes, ffts = chip_smoke.make_case(cfg, n_ch,
+                                                  cfg.blocks_per_step,
+                                                  seed=5, device=cuda)
+    chip_smoke.check_wipeoff(cfg, st, chunk, 0, codes, ffts, vpu=True,
+                             wipe=chip_smoke.crafted_wipe(cfg, n_ch))
+
+
+@pytest.mark.parametrize("cfg,n_ch", [(SMALL, 2), (PRODUCT, 11)],
+                         ids=["small", "product"])
+def test_wipeoff_vpu_kernel_repeats_bit_identical(cuda, cfg, n_ch):
+    """Two calls on the same inputs give the same bits: the column
+    groups and the cluster's tiles are added in a fixed order, with no
+    float atomics."""
+    import math
+
+    from gps_sdr_tpu_torch.ops import hopper_wipeoff, tracking
+
+    st, chunk, codes, _ = chip_smoke.make_case(cfg, n_ch,
+                                               2 * cfg.blocks_per_step,
+                                               seed=5, device=cuda)
+    k = cfg.blocks_per_step
+    s = 2.0 * math.pi * st.freq / cfg.sample_rate
+    snp = torch.remainder(s * cfg.ngps, 2.0 * math.pi)
+    args = (cfg, k, s, snp, st.phase, chip_smoke.crafted_wipe(cfg, n_ch).to(
+        cuda), tracking.to_grouped_planar(cfg, chunk), 1, codes)
+    first = hopper_wipeoff.mix_wipeoff_vpu(*args)
+    for _ in range(3):
+        again = hopper_wipeoff.mix_wipeoff_vpu(*args)
+        torch.cuda.synchronize()
+        for a, b in zip(first, again):
+            assert torch.equal(torch.view_as_real(a).view(torch.int32),
+                               torch.view_as_real(b).view(torch.int32))
 
 
 @pytest.mark.parametrize("cfg,n_ch", [(SMALL, 2), (PRODUCT, 11)],

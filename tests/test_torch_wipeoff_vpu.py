@@ -9,7 +9,14 @@ tests/test_pallas_kernels.py runs it), with that test's tolerances:
 delay exact, code_phase atol 5e-3 samples, norm_max rtol 2e-3, head and
 segment sums atol 2e-3, phase_end atol 1e-3 rad.  The two plain versions
 of the port (planar and complex input) share their arithmetic, so they
-agree exactly, and so does fused tracking over either layout."""
+agree exactly, and so does fused tracking over either layout.
+
+The CUDA kernel sums the raw samples against per-column weights and
+rotates each period's sums once; _mix_wipeoff_vpu_math mirrors that
+order of arithmetic on the CPU and is held against the interpret-mode
+Pallas mix_wipeoff and the plain math within the card check's bound
+(1e-4 of the largest magnitude: f32 sums over up to 2048 samples taken
+in another order)."""
 
 import dataclasses
 
@@ -156,3 +163,98 @@ def test_vpu_wrapper_refuses_other_devices():
     with pytest.raises(ValueError, match="no path"):
         hopper_wipeoff.mix_wipeoff_vpu(CFG, K, None, None, None, None, meta,
                                        0, None)
+    # what the kernel does not take: too many channels for its shared
+    # memory, a configuration outside its tiling, a misaligned chunk
+    limits = hopper_wipeoff._vpu_limits
+    for n_ch in (1, 12, hopper_wipeoff.VPU_MAX_CH):
+        limits(CFG, n_ch, 0)
+        limits(ReceiverConfig(), n_ch, 4096)
+    for cfg, n_ch in ((CFG, hopper_wipeoff.VPU_MAX_CH + 1), (CFG, 0),
+                      (CFG.replace(code_samples=192), 2),
+                      (CFG.replace(code_samples=4096, n_cyc=32), 2),
+                      (CFG.replace(n_cyc=24), 2),
+                      (CFG.replace(n_cyc=32, corr_avg=20), 2)):
+        with pytest.raises(ValueError, match="wipeoff_vpu kernel: needs"):
+            limits(cfg, n_ch, 0)
+    planar = torch.empty(K * 2 * CFG.n_cyc * CFG.code_samples + 4)
+    assert planar.data_ptr() % 16 == 0
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        limits(CFG, 2, planar[1:].data_ptr())
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's order of arithmetic (_mix_wipeoff_vpu_math), on the CPU
+
+
+def _vpu_case(cfg, delays, k):
+    """Two channels of SATS' stream at `cfg`, made from a numpy seed: (s,
+    snp, phase, wipe, re and im planes [k, n_cyc, cs], codes), with wipe
+    delays `delays` (one row of k per channel)."""
+    blocks = synth_stream(cfg, SATS, k, noise_std=0.5, seed=9)
+    planar = ttrk.to_grouped_planar(cfg, torch.from_numpy(blocks))
+    codes = torch.from_numpy(np.stack([cacode.ca_table(cfg)[s.prn]
+                                       for s in SATS]))
+    freq = torch.tensor([s.doppler for s in SATS], dtype=torch.float32)
+    s = 2 * np.pi * freq / cfg.sample_rate
+    snp = torch.remainder(s * cfg.ngps, 2 * np.pi)
+    phase = torch.tensor([0.3, 5.9], dtype=torch.float32)
+    wipe = torch.tensor(delays, dtype=torch.int32)
+    return s, snp, phase, wipe, planar[:, 0], planar[:, 1], codes
+
+
+def _jax_vpu(cfg, k, s, snp, phase, wipe, xr, xi, codes):
+    """The JAX package's mix_wipeoff (Pallas, interpret mode on the CPU)
+    on the same inputs: (center [k, C, cs], head [C, k],
+    seg [C, k, n_cyc])."""
+    from gps_sdr_tpu.ops.pallas_kernels import mix_wipeoff
+
+    n_cyc = cfg.n_cyc
+    s, snp, phase = (jnp.asarray(v.numpy()) for v in (s, snp, phase))
+    params = jnp.stack([s, phase, snp, jnp.zeros_like(s)], axis=1)
+    blocks2 = jnp.asarray(np.stack([xr.numpy(), xi.numpy()], axis=1))
+    center, sums = mix_wipeoff(_jax(cfg), k, params,
+                               jnp.asarray(wipe.numpy()), blocks2,
+                               jnp.asarray(codes.numpy()))
+    center, sums = np.asarray(center), np.asarray(sums)
+    center = center[:, 0::2] + 1j * center[:, 1::2]          # [k, C, cs]
+    sums = sums[:, 0::2] + 1j * sums[:, 1::2]                # [k, C, pad]
+    head = sums[:, :, 0].T
+    seg = np.transpose(sums[:, :, 1:n_cyc + 1], (1, 0, 2))
+    return center, head, seg
+
+
+def _within(got, want, rel=1e-4):
+    """check_wipeoff's bound: max abs error <= rel x the largest
+    magnitude, part by part (center, head, seg)."""
+    for name, g, w in zip(("center", "head", "seg"), got, want):
+        g, w = np.asarray(g), np.asarray(w)
+        assert g.shape == w.shape, f"{name}: {g.shape} != {w.shape}"
+        err, scale = np.abs(g - w).max(), np.abs(w).max()
+        assert err <= rel * scale, f"{name}: {err:.3g} > {rel} x {scale:.3g}"
+
+
+# wipe delays 0, 1, 127-129 and 255 (cs = 256): both ends of the code
+# period and both sides of the kernel's 128-column tile edge, for the
+# roll and the head mask
+@pytest.mark.parametrize("delays", [((0, 255, 1, 128), (255, 0, 128, 1)),
+                                    ((1, 127, 128, 0), (128, 129, 255, 2))])
+def test_vpu_mirror_matches_jax_and_plain(delays):
+    args = _vpu_case(CFG, delays, K)
+    got = hopper_wipeoff._mix_wipeoff_vpu_math(CFG, K, *args)
+    assert [tuple(g.shape) for g in got] == [(K, 2, CFG.code_samples),
+                                             (2, K), (2, K, CFG.n_cyc)]
+    _within(got, _jax_vpu(CFG, K, *args))
+    _within(got, hopper_wipeoff._mix_wipeoff_math(CFG, K, *args))
+
+
+@pytest.mark.parametrize("delays", [((0, 2047), (128, 127)),
+                                    ((1, 1029), (1920, 2046))])
+def test_vpu_mirror_meets_card_bound_at_product_shapes(delays):
+    """At the product's cs and n_cyc (2 channels, K=2, noise 0.5) the
+    kernel's order of arithmetic keeps center, head and seg within
+    check_wipeoff's 1e-4 of the largest magnitude of the plain version's.
+    """
+    cfg = ReceiverConfig(use_mxu_wipeoff=False)
+    args = _vpu_case(cfg, delays, 2)
+    got = hopper_wipeoff._mix_wipeoff_vpu_math(cfg, 2, *args)
+    _within(got, hopper_wipeoff._mix_wipeoff_math(cfg, 2, *args))
