@@ -35,7 +35,29 @@ Phases (any failure raises and the script exits non-zero):
      (fused windows of 8 chunks, compact transport); the wipeoff_vpu and
      cheap kernels must have run on every K-step and the wipeoff kernel
      never, and the same PRN, ephemeris and fix checks hold, with no
-     bit edge dropped by the transport.
+     bit edge dropped by the transport;
+  7. the serving slice (runtime/serving.py StreamServer) at the product
+     shapes:
+     a. the stream axis of the kernels: at S = 4 streams of 11 channels,
+        with one shared chunk and with 4 distinct ones, each wipeoff
+        kernel's stream-axis launch against its plain version with
+        phase 2's tolerances, and bit for bit against 4 single-stream
+        launches; the cheap kernel over S*C = 44 channels likewise, with
+        phase 3's tolerances;
+     b. 8 replicas of phase 6's scenario synthesized on the card, served
+        with the CLI's `serve` settings (windows of 16 chunks, 4 in
+        flight, one epoch a window) at ReceiverConfig()'s kernel 1, and
+        evaluated with process_many: every stream acquires the
+        scenario's PRNs, decodes >= 4 ephemerides, fixes within 8 m and
+        drops no bit edge; the acquisition grid ran once; the wipeoff
+        and cheap kernels launched once a K-step of one stream (not S
+        times); stream 0's subframes equal those of a single
+        Receiver.run_device of the same synthesis, and its code phases,
+        keyed by block, agree within 5e-3 samples;
+     c. 3 independent front ends (scenarios of seeds 3, 5 and 7) at
+        use_mxu_wipeoff=False (kernel 2 on stacked windows), windows of
+        8 chunks: the same checks per stream, and the streams' PRN sets
+        differ.
 The line before the last holds the kernels' launches, errors, times and
 bounds as JSON; the last line is {"ok": true, "device": {...}}.
 """
@@ -165,11 +187,13 @@ def crafted_wipe(cfg, n_ch):
 
 def check_wipeoff(cfg, states, chunk, step, codes, code_ffts,
                   timing: bool = False, vpu: bool = False,
-                  wipe=None) -> dict:
+                  wipe=None, n_streams: int = 1) -> dict:
     """A wipeoff kernel vs its plain version on the same CUDA inputs:
     mix_wipeoff on the complex chunk, or with vpu=True mix_wipeoff_vpu
     on the chunk in the grouped planar layout; `wipe` overrides the
-    predicted wipeoff delays.  Tolerances:
+    predicted wipeoff delays.  With n_streams > 1 the channels are those
+    of that many streams (stream_case) and the chunk is shared
+    ([T, ngps]) or one a stream ([S, T, ngps]).  Tolerances:
     head/seg/center max abs error <= 1e-4 of the largest magnitude (f32
     sums over 2048 samples in another order), and on the derived
     correlation delay exact, code_phase atol 5e-3, norm_max rtol
@@ -194,7 +218,8 @@ def check_wipeoff(cfg, states, chunk, step, codes, code_ffts,
         kernel = hopper_wipeoff.mix_wipeoff
         plain = hopper_wipeoff.mix_wipeoff_plain
     name = kernel.__name__
-    args = (cfg, k, s, snp, states.phase, wipe, chunk, step, codes)
+    args = (cfg, k, s, snp, states.phase, wipe, chunk, step, codes,
+            n_streams)
     got = kernel(*args)
     want = plain(*args)
     torch.cuda.synchronize()
@@ -492,6 +517,198 @@ def check_cheap_facts(cfg, out, facts) -> None:
 
 
 # --------------------------------------------------------------------------
+# the stream axis (phase 7a; also used by tests/test_torch_cuda.py)
+
+
+def stream_case(cfg, n_streams, shared, n_blocks, seed, device):
+    """(states, chunk, codes, code_ffts) of n_streams streams of
+    cfg.max_sat channels, flattened stream after stream ([S*C, ...]).
+    Distinct: stream z's channels and chunk are make_case(seed + z)'s,
+    the chunks stacked [S, T, ngps].  Shared: every stream tracks the
+    satellites of make_case(seed)'s chunk [T, ngps], as replicas of one
+    capture do, stream z with its NCO phase 0.5 z rad and its Doppler
+    0.5 z Hz off (so that a stream reading another's parameters would
+    show, while every channel stays on its signal)."""
+    import math
+
+    import torch
+    from gps_sdr_tpu_torch.ops import tracking
+
+    if shared:
+        st, chunk, codes, ffts = make_case(cfg, cfg.max_sat, n_blocks, seed,
+                                           device)
+        cases = [(st._replace(
+            phase=torch.remainder(st.phase + 0.5 * z, 2.0 * math.pi),
+            freq=st.freq + 0.5 * z), chunk, codes, ffts)
+            for z in range(n_streams)]
+    else:
+        cases = [make_case(cfg, cfg.max_sat, n_blocks, seed + z, device)
+                 for z in range(n_streams)]
+    states = tracking.ChannelState(*(torch.cat(f) for f in
+                                     zip(*[c[0] for c in cases])))
+    chunk = cases[0][1] if shared else torch.stack([c[1] for c in cases])
+    return (states, chunk, torch.cat([c[2] for c in cases]),
+            torch.cat([c[3] for c in cases]))
+
+
+def _same_bits(a, b) -> bool:
+    """Equal bit for bit (floats compared as their integer images)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_complex():
+        a, b = torch.view_as_real(a), torch.view_as_real(b)
+    if a.is_floating_point():
+        a = a.contiguous().view(torch.int32)
+        b = b.contiguous().view(torch.int32)
+    return torch.equal(a, b)
+
+
+def check_stream_bits(cfg, states, chunk, step, codes, n_streams, shared,
+                      vpu: bool = False) -> None:
+    """A wipeoff kernel's launch over n_streams streams gives the bits of
+    n_streams single-stream launches on the streams' slices."""
+    import math
+
+    import torch
+    from gps_sdr_tpu_torch.ops import hopper_wipeoff, tracking
+
+    k = cfg.blocks_per_step
+    kernel = (hopper_wipeoff.mix_wipeoff_vpu if vpu
+              else hopper_wipeoff.mix_wipeoff)
+    if vpu:
+        chunk = tracking.to_grouped_planar(cfg, chunk)
+    s = 2.0 * math.pi * states.freq / cfg.sample_rate
+    snp = torch.remainder(s * cfg.ngps, 2.0 * math.pi)
+    wipe = tracking.predict_wipe_delays(cfg, k, states.freq, states.delay)
+    got = kernel(cfg, k, s, snp, states.phase, wipe, chunk, step, codes,
+                 n_streams)
+    c = s.shape[0] // n_streams
+    for z in range(n_streams):
+        ch = slice(z * c, (z + 1) * c)
+        one = kernel(cfg, k, s[ch], snp[ch], states.phase[ch], wipe[ch],
+                     chunk if shared else chunk[z], step, codes[ch])
+        for part, g, w in zip(("center", "head", "seg"),
+                              (got[0][:, ch], got[1][ch], got[2][ch]), one):
+            if not _same_bits(g, w):
+                raise AssertionError(
+                    f"{kernel.__name__} stream {z} {part}: the stream-axis "
+                    "launch differs from a single-stream launch")
+    torch.cuda.synchronize()
+
+
+def check_cheap_streams(cfg, cases) -> dict:
+    """The cheap kernel over the channels of all `cases` (cheap_scan
+    argument tuples of one stream each), concatenated: against its plain
+    version (_compare_cheap) and bit for bit against one launch a
+    case."""
+    import torch
+    from gps_sdr_tpu_torch.ops import hopper_cheap, tracking
+
+    k = cases[0][1]
+    cat = [torch.cat(f) for f in zip(*[c[2:6] for c in cases])]
+    st = tracking.ChannelState(*(torch.cat(f) for f in
+                                 zip(*[c[6] for c in cases])))
+    args = (cfg, k, *cat, st)
+    got = hopper_cheap.cheap_scan(*args)
+    want = hopper_cheap.cheap_scan_plain(*args)
+    torch.cuda.synchronize()
+    worst = _compare_cheap(got, want)
+    c0 = 0
+    for case in cases:
+        c = case[2].shape[0]
+        one = hopper_cheap.cheap_scan(*case)
+        for name, g, w in zip(one._fields, got, one):
+            if not _same_bits(g[c0:c0 + c], w):
+                raise AssertionError(f"cheap {name}: the {len(cases)}-stream "
+                                     "launch differs from a one-stream one")
+        c0 += c
+    torch.cuda.synchronize()
+    return dict(max_abs_err=worst, channels=c0)
+
+
+def check_stream_axis(cfg, n_streams, shared, seed, dev) -> dict:
+    """The three kernels' stream-axis launches on stream_case: each
+    against its plain version (check_wipeoff, check_cheap_streams) and
+    bit for bit against n_streams single-stream launches.  Returns the
+    largest absolute errors against the plain versions."""
+    from gps_sdr_tpu_torch.ops import tracking
+
+    k = cfg.blocks_per_step
+    st, chunk, codes, ffts = stream_case(cfg, n_streams, shared, 2 * k,
+                                         seed, dev)
+    out = {}
+    for name, vpu in (("wipeoff", False), ("wipeoff_vpu", True)):
+        out[name] = check_wipeoff(cfg, st, chunk, 1, codes, ffts, vpu=vpu,
+                                  n_streams=n_streams)["max_abs_err"]
+        check_stream_bits(cfg, st, chunk, 1, codes, n_streams, shared, vpu)
+    # the cheap kernel on the stream-axis heavy stage's sums
+    heavy = tracking.heavy_stage(cfg, k, st, chunk, 0, codes, ffts,
+                                 n_streams=n_streams)
+    _, erased = tracking._erased(st, 1)
+    c = cfg.max_sat
+    cases = []
+    for z in range(n_streams):
+        ch = slice(z * c, (z + 1) * c)
+        cases.append((cfg, k, heavy.head_k[ch], heavy.seg_sums_k[ch],
+                      heavy.delay_k[ch], heavy.wipe_delay[ch],
+                      tracking.ChannelState(*(x[ch] for x in erased))))
+    out["cheap"] = check_cheap_streams(cfg, cases)["max_abs_err"]
+    return out
+
+
+def run_stream_axis(cfg, dev, n_streams: int = 4) -> dict:
+    """Phase 7a: each kernel's stream-axis launch at the product shapes,
+    shared and distinct chunks, and the cheap kernel on crafted cases of
+    n_streams streams; also the stream-axis launch's time at S = 1, 4
+    and 8 (shared)."""
+    import math
+
+    import torch
+    from gps_sdr_tpu_torch.ops import hopper_cheap, hopper_wipeoff, tracking
+
+    k = cfg.blocks_per_step
+    out = {}
+    for shared in (True, False):
+        tag = "shared" if shared else "distinct"
+        errs = check_stream_axis(cfg, n_streams, shared, 7, dev)
+        out[tag] = errs
+        log(f"[7a] {n_streams} streams x {cfg.max_sat} channels, {tag} "
+            f"chunks: wipeoff, wipeoff_vpu and cheap ({n_streams * cfg.max_sat}"
+            f" channels) within tolerance of their plain versions (max abs "
+            f"errors {json.dumps(errs)}) and bit-identical to "
+            f"{n_streams} single-stream launches")
+    cases = [cheap_case(cfg, cfg.max_sat, 3 + z, dev)[0]
+             for z in range(n_streams)]
+    r = check_cheap_streams(cfg, cases)
+    out["cheap_crafted"] = r["max_abs_err"]
+    log(f"[7a] cheap, crafted cases of {n_streams} streams: max abs err "
+        f"{r['max_abs_err']:.3g}, bit-identical to single-stream launches")
+    # stream-axis launch times (wrapper medians, CUDA events)
+    times = {}
+    for n in (1, 4, 8):
+        st, chunk, codes, _ = stream_case(cfg, n, True, k, 7, dev)
+        s = 2.0 * math.pi * st.freq / cfg.sample_rate
+        snp = torch.remainder(s * cfg.ngps, 2.0 * math.pi)
+        wipe = tracking.predict_wipe_delays(cfg, k, st.freq, st.delay)
+        planar = tracking.to_grouped_planar(cfg, chunk)
+        times[f"wipeoff_S{n}_ms"] = time_ms(lambda: hopper_wipeoff.mix_wipeoff(
+            cfg, k, s, snp, st.phase, wipe, chunk, 0, codes, n))
+        times[f"wipeoff_vpu_S{n}_ms"] = time_ms(
+            lambda: hopper_wipeoff.mix_wipeoff_vpu(
+                cfg, k, s, snp, st.phase, wipe, planar, 0, codes, n))
+        _, head, seg = hopper_wipeoff.mix_wipeoff(
+            cfg, k, s, snp, st.phase, wipe, chunk, 0, codes, n)
+        times[f"cheap_S{n}_ms"] = time_ms(lambda: hopper_cheap.cheap_scan(
+            cfg, k, head, seg, wipe, wipe, st))
+    log(f"[7a] stream-axis wrapper medians (ms, shared chunk): "
+        f"{json.dumps(times)}")
+    out.update(times)
+    return out
+
+
+# --------------------------------------------------------------------------
 # the slice
 
 
@@ -628,6 +845,188 @@ def run_device_slice(base_cfg) -> dict:
                 fixes=summary["n_positions"])
 
 
+SERVE_SKIP = {"AMP", "CN0", "CRM", "FRQ", "SWP", "EPH"}
+
+
+def _stream_record(epochs) -> tuple[set, dict]:
+    """(the decoded subframes as a set of their nav fields, code phases
+    keyed by (PRN, block)) of one stream's epochs: what does not depend
+    on how the chunks fall into download windows."""
+    from gps_sdr_tpu_torch.utils.cplist import cp_arrays
+
+    frames, coph = set(), {}
+    for e in epochs:
+        frames |= {tuple(sorted((k, v) for k, v in f.items()
+                                if k not in SERVE_SKIP
+                                and isinstance(v, (int, float, str, bool))))
+                   for f in e.frames if "ID" in f}
+        for prn, lst in e.code_phases.items():
+            snos, cps = cp_arrays(lst)
+            coph.update({(prn, int(n)): float(c) for n, c in zip(snos, cps)})
+    return frames, coph
+
+
+def _ev_summary(ev) -> dict:
+    """The parts of Session.final_summary that _check_fix reads."""
+    return {"n_positions": len(ev.positions), "stat": ev.stat,
+            "n_outliers": len(ev.outliers),
+            "n_fix_failures": len(ev.fix_failures),
+            "ephemerides": {sat: eng.ephem for sat, eng in ev.engines.items()
+                            if eng.ephem_ok}}
+
+
+def serve(cfg, n_streams, providers, n_chunks, keep_epochs=()):
+    """Drive a StreamServer on the card as `python -m gps_sdr_tpu_torch
+    serve` does (process_many over each round of streams); returns
+    (server, evaluators, wall s, {stream: epochs} for keep_epochs,
+    acquisition grids run)."""
+    import torch
+    from gps_sdr_tpu_torch.runtime import receiver as receiver_mod
+    from gps_sdr_tpu_torch.runtime.evaluator import Evaluator, process_many
+    from gps_sdr_tpu_torch.runtime.serving import StreamServer
+
+    srv = StreamServer(cfg, n_streams, device="cuda")
+    evs = [Evaluator(cfg) for _ in range(n_streams)]
+    kept = {s: [] for s in keep_epochs}
+    grids = []
+    real = receiver_mod.acquire_all
+
+    def counting(*a, **kw):
+        grids.append(kw.get("prns"))
+        return real(*a, **kw)
+
+    receiver_mod.acquire_all = counting
+    try:
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pend = []
+        for s, epoch in srv.run(providers, n_chunks):
+            pend.append((evs[s], epoch))
+            if s in kept:
+                kept[s].append(epoch)
+            if len(pend) == n_streams:
+                process_many(pend)
+                pend = []
+        if pend:
+            process_many(pend)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        receiver_mod.acquire_all = real
+    return srv, evs, wall, kept, len(grids)
+
+
+def _check_streams(tag, scns, srv, evs, launches, wall, sig_sec, name):
+    """Phase 7b/7c checks common to both: every stream's PRNs, ephemerides
+    and fix (_check_fix), no dropped edge, and one launch of `name` and
+    of cheap per K-step of one stream."""
+    errs = []
+    for s, (scn, rx, ev) in enumerate(zip(scns, srv.receivers, evs)):
+        errs.append(_check_fix(f"{tag} stream {s}", scn, rx, _ev_summary(ev)))
+        if rx.status.edge_overflows:
+            raise AssertionError(f"stream {s}: {rx.status.edge_overflows} "
+                                 "bit edges dropped by the transport")
+    k_steps = srv.receivers[0].status.k_steps
+    other = "wipeoff_vpu" if name == "wipeoff" else "wipeoff"
+    per_step = {n: v / max(k_steps, 1) for n, v in launches.items()}
+    log(f"[{tag}] {srv.n_streams} streams: mean fix errors "
+        f"{[round(e, 3) for e in errs]} m; wall {wall:.3f} s for "
+        f"{srv.n_streams} x {sig_sec:.2f} s = "
+        f"{srv.n_streams * sig_sec / wall:.2f}x aggregate realtime; stages "
+        f"{json.dumps({k: round(v, 4) for k, v in srv.perf.items()})}; "
+        f"K-steps of a stream {k_steps}, launches {launches}, per K-step "
+        f"{per_step}")
+    if not (launches[name] == launches["cheap"] == k_steps
+            and launches[other] == 0 and k_steps > 0):
+        raise AssertionError(f"launches {launches}: want one {name} and one "
+                             f"cheap launch per K-step of one stream "
+                             f"({k_steps}) and no {other}")
+    return errs
+
+
+def run_serving_slice(base_cfg, n_streams: int = 8) -> dict:
+    """Phase 7b: n_streams replicas of phase 6's scenario, synthesized on
+    the card, through StreamServer with the CLI's serve settings."""
+    from gps_sdr_tpu_torch.models.scenario import make_scenario
+    from gps_sdr_tpu_torch.models.scenario_dev import DeviceScenarioSynth
+    from gps_sdr_tpu_torch.runtime.receiver import Receiver
+
+    cfg = base_cfg.replace(chunks_per_download=16,
+                           download_windows_in_flight=4,
+                           defer_subframe_poll=True, epoch_per_window=True)
+    scn = make_scenario(cfg, n_sats=N_SATS, seed=SEED,
+                        duration_sec=SLICE_SEC + 12.0)
+    synth = DeviceScenarioSynth(scn, noise_std=NOISE, knot_interp_step=0.1,
+                                device="cuda")
+    t = cfg.no_sec
+    n_chunks = int(round(SLICE_SEC / cfg.block_sec)) // t
+    sig_sec = n_chunks * t * cfg.block_sec
+    srv, evs, wall, kept, grids = serve(cfg, n_streams, synth.chunk_planar,
+                                        n_chunks, keep_epochs=(0,))
+    launches = _read_launches()
+    errs = _check_streams("7b", [scn] * n_streams, srv, evs, launches, wall,
+                          sig_sec, "wipeoff")
+    if grids != 1:
+        raise AssertionError(f"{grids} acquisition grids for {n_streams} "
+                             "replicas of one capture (want 1)")
+    # stream 0 against a single receiver on the same synthesis
+    rx = Receiver(cfg, device="cuda")
+    ref = list(rx.run_device(synth.chunk_planar, n_chunks))
+    fr_s, cp_s = _stream_record(kept[0])
+    fr_r, cp_r = _stream_record(ref)
+    if fr_s != fr_r or not fr_s:
+        raise AssertionError(f"stream 0 decoded {len(fr_s)} subframes, a "
+                             f"single receiver {len(fr_r)}; "
+                             f"{len(fr_s ^ fr_r)} differ")
+    if cp_s.keys() != cp_r.keys():
+        raise AssertionError(f"stream 0 has code phases at "
+                             f"{len(cp_s.keys() - cp_r.keys())} (PRN, block)s "
+                             f"a single receiver has not, and misses "
+                             f"{len(cp_r.keys() - cp_s.keys())}")
+    cp_err = max(abs(cp_s[key] - cp_r[key]) for key in cp_r)
+    if not cp_err <= 5e-3:
+        raise AssertionError(f"stream 0 code phases differ from a single "
+                             f"receiver's by up to {cp_err:.3g} samples")
+    log(f"[7b] stream 0 vs a single Receiver.run_device: {len(fr_s)} "
+        f"subframes identical, {len(cp_s)} code phases within "
+        f"{cp_err:.3g} samples; acquisition grids run: {grids}")
+    return dict(launches=launches, err_m=errs, wall_s=wall,
+                rtf=n_streams * sig_sec / wall, perf=dict(srv.perf),
+                cp_err_vs_single=cp_err, subframes=len(fr_s))
+
+
+def run_independent_slice(base_cfg, seeds=(3, 5, 7)) -> dict:
+    """Phase 7c: one scenario a stream (independent front ends), kernel
+    2 on the stacked windows."""
+    from gps_sdr_tpu_torch.models.scenario import make_scenario
+    from gps_sdr_tpu_torch.models.scenario_dev import DeviceScenarioSynth
+
+    cfg = base_cfg.replace(use_mxu_wipeoff=False, chunks_per_download=8,
+                           download_windows_in_flight=4,
+                           defer_subframe_poll=True, epoch_per_window=True)
+    scns = [make_scenario(cfg, n_sats=N_SATS, seed=sd,
+                          duration_sec=SLICE_SEC + 12.0) for sd in seeds]
+    synths = [DeviceScenarioSynth(sc, noise_std=NOISE, knot_interp_step=0.1,
+                                  device="cuda") for sc in scns]
+    t = cfg.no_sec
+    n_chunks = int(round(SLICE_SEC / cfg.block_sec)) // t
+    sig_sec = n_chunks * t * cfg.block_sec
+    srv, evs, wall, _, grids = serve(cfg, len(seeds),
+                                     [sy.chunk_planar for sy in synths],
+                                     n_chunks)
+    launches = _read_launches()
+    errs = _check_streams("7c", scns, srv, evs, launches, wall, sig_sec,
+                          "wipeoff_vpu")
+    prns = [sorted(f[1] for f in rx.found_sats) for rx in srv.receivers]
+    if len({tuple(p) for p in prns}) < 2:
+        raise AssertionError(f"independent streams acquired the same PRNs "
+                             f"{prns}")
+    log(f"[7c] PRNs by stream {prns}; acquisition grids run: {grids}")
+    return dict(launches=launches, err_m=errs, wall_s=wall,
+                rtf=len(seeds) * sig_sec / wall, perf=dict(srv.perf))
+
+
 # --------------------------------------------------------------------------
 
 
@@ -721,18 +1120,27 @@ def main() -> int:
     # 6. the device-resident slice
     ds = run_device_slice(cfg)
 
-    cheap = _kernel_entry("cheap", "cheap.cu",
-                          "gps_sdr_tpu/ops/pallas_cheap.py:61",
-                          ds["launches"]["cheap"], c)
-    cheap["launches_replay_slice"] = sl["launches"]["cheap"]
-    log(json.dumps({"kernels": [
+    # 7. the serving slice
+    run_stream_axis(cfg, dev)
+    sv = run_serving_slice(cfg)
+    ind = run_independent_slice(cfg)
+
+    kernels = [
         _kernel_entry("wipeoff", "wipeoff.cu",
                       "gps_sdr_tpu/ops/pallas_kernels.py:171",
                       sl["launches"]["wipeoff"], w),
         _kernel_entry("wipeoff_vpu", "wipeoff_vpu.cu",
                       "gps_sdr_tpu/ops/pallas_kernels.py:44",
                       ds["launches"]["wipeoff_vpu"], v),
-        cheap]}))
+        _kernel_entry("cheap", "cheap.cu",
+                      "gps_sdr_tpu/ops/pallas_cheap.py:61",
+                      ds["launches"]["cheap"], c)]
+    kernels[2]["launches_replay_slice"] = sl["launches"]["cheap"]
+    for entry in kernels:
+        entry["launches_serving"] = {
+            "shared_8_streams": sv["launches"][entry["name"]],
+            "independent_3_streams": ind["launches"][entry["name"]]}
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

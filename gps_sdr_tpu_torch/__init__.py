@@ -23,7 +23,11 @@ noted:
   runtime/receiver.py          Receiver: run (host-fed) and run_device
                                (device-resident)
   runtime/session.py           Session
-  cli.py                       `python -m gps_sdr_tpu_torch replay ...`
+  runtime/serving.py           StreamServer: S receivers on one card,
+                               the stream axis in the kernels' grids
+  runtime/checkpoint.py        session and server checkpoints
+  cli.py                       `python -m gps_sdr_tpu_torch replay ...`,
+                               `synth`, `serve`
 
 The host half is the port's own copy of the JAX package's JAX-free
 modules, at the same relative paths, with their imports pointed here:

@@ -2,12 +2,16 @@
 
     python -m gps_sdr_tpu_torch replay capture.bin --ui headless --out run1
     python -m gps_sdr_tpu_torch synth --sec 40 --sats 6 --device cuda
+    python -m gps_sdr_tpu_torch serve synth --streams 8 --save-state s.pkl
 
 The parser, make_config, make_reporter, block_source, _save_outputs and
 _arm_warm_start are copies of gps_sdr_tpu/cli.py's (without the plot UI
 and the digital front end, which are not ported); this module adds
-`--device` (default cuda) and runs the port's Session in process.
-Modes and options the port does not have yet stop with an error.
+`--device` (default cuda) and runs the port's Session, or for `serve`
+its StreamServer, in process.  A resumed run (`--resume-state`) keeps
+the checkpoint's config and continues the source at the block where the
+saved run stopped.  Modes and options the port does not have yet stop
+with an error.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import numpy as np
 
 from gps_sdr_tpu_torch.config import ReceiverConfig
 
-PORTED_MODES = ("replay", "synth")
+PORTED_MODES = ("replay", "synth", "serve")
 
 
 def _parser_of_all_modes() -> argparse.ArgumentParser:
@@ -243,10 +247,12 @@ def block_source(args, cfg):
         scn = make_scenario(cfg, n_sats=args.sats, seed=args.seed,
                             duration_sec=sec + 12.0)
         n_blocks = int(round(sec / cfg.block_sec))
+        # a resumed run continues the scenario where the saved one stopped
+        start = getattr(args, "start_stream", 0)
 
         def gen():
             step = 4 * cfg.no_sec
-            for first in range(0, n_blocks, step):
+            for first in range(start, n_blocks, step):
                 n = min(step, n_blocks - first)
                 chunk = synth_scenario_blocks(scn, first, n,
                                               noise_std=args.noise,
@@ -332,10 +338,10 @@ def _not_ported(args) -> str | None:
     """Why `args` asks for something the port does not have, or None."""
     if args.mode not in PORTED_MODES:
         return f"mode {args.mode!r} is not yet ported to PyTorch"
+    if args.mode == "serve":
+        return None
     if args.role != "both":
         return f"--role {args.role} is not yet ported to PyTorch"
-    if args.save_state or args.resume_state:
-        return "--save-state/--resume-state are not yet ported to PyTorch"
     if getattr(args, "input_rate", None):
         return "--input-rate (the digital front end) is not yet ported"
     if args.ui == "plot":
@@ -347,20 +353,45 @@ def run_in_process(args, cfg) -> int:
     """Single-process topology over the port's Session."""
     from gps_sdr_tpu_torch.runtime.session import Session
 
-    session = Session(cfg, device=args.device,
-                      ephem_cache_path=args.ephem_cache,
-                      almanac_cache_path=args.almanac_cache,
-                      record_epochs_to=args.record_epochs,
-                      reporter=make_reporter(args))
+    if args.resume_state:
+        from gps_sdr_tpu_torch.runtime.checkpoint import load_session
+        session = load_session(args.resume_state,
+                               reporter=make_reporter(args),
+                               device=args.device)
+        session.record_epochs_to = args.record_epochs
+        session.ephem_cache_path = args.ephem_cache
+        # the checkpoint's config governs the resumed run: the restored
+        # tracking state belongs to its block framing, so the source is
+        # built with it too (the CLI's shape flags are ignored)
+        if cfg.n_cyc != session.cfg.n_cyc:
+            print(f"resume: using checkpoint n_cyc={session.cfg.n_cyc} "
+                  f"(ignoring --n-cyc {cfg.n_cyc})")
+        cfg = session.cfg
+        if getattr(args, "start_stream", 0) == 0:
+            # continue the source where the saved run stopped
+            args.start_stream = session.receiver.status.stream_no
+            print(f"resume: continuing at stream block "
+                  f"{args.start_stream}")
+    else:
+        session = Session(cfg, device=args.device,
+                          ephem_cache_path=args.ephem_cache,
+                          almanac_cache_path=args.almanac_cache,
+                          record_epochs_to=args.record_epochs,
+                          reporter=make_reporter(args))
     if args.warm_start:
         _arm_warm_start(args.warm_start, session)
+    n_prior = len(session.summaries)
     t0 = time.time()
     summary = session.run_source(block_source(args, cfg))
     wall = time.time() - t0
-    sec = len(session.summaries) * cfg.no_sec * cfg.block_sec
+    sec = (len(session.summaries) - n_prior) * cfg.no_sec * cfg.block_sec
     print(f"processed {sec:.1f} s of stream in {wall:.1f} s "
           f"({sec / max(wall, 1e-9):.1f}x realtime) on "
           f"{session.receiver.device}")
+    if args.save_state:
+        from gps_sdr_tpu_torch.runtime.checkpoint import save_session
+        save_session(session, args.save_state)
+        print(f"checkpoint saved to {args.save_state}")
     if args.out or args.ephem_cache:
         _save_outputs(args, cfg, session.evaluator)
     if args.record_epochs:
@@ -383,6 +414,129 @@ def run_in_process(args, cfg) -> int:
     return 0
 
 
+def serve_config(args) -> ReceiverConfig:
+    """The serving configuration: fused windows of --windows chunks, 4
+    windows in flight, subframes polled once a window, one epoch a
+    window."""
+    kw = dict(n_cyc=args.n_cyc, max_sat=args.max_sat,
+              chunks_per_download=args.windows,
+              download_windows_in_flight=4,
+              defer_subframe_poll=True, epoch_per_window=True)
+    if args.conf_height is not None:
+        kw.update(conf_height=True, height=args.conf_height)
+    if args.carrier_smoothing:
+        kw.update(carrier_smoothing=args.carrier_smoothing)
+    return ReceiverConfig(**kw)
+
+
+def open_server(args):
+    """(server, evaluators, first block) for `serve`: a new server at
+    serve_config, or with --resume-state the checkpoint's server, which
+    keeps the checkpoint's config and continues at the block where it
+    stopped."""
+    from gps_sdr_tpu_torch.runtime.evaluator import Evaluator
+    from gps_sdr_tpu_torch.runtime.serving import StreamServer
+
+    if args.resume_state:
+        from gps_sdr_tpu_torch.runtime.checkpoint import load_server
+        srv, evs = load_server(args.resume_state, device=args.device)
+        if srv.n_streams != args.streams:
+            print(f"note: checkpoint has {srv.n_streams} streams; "
+                  f"ignoring --streams {args.streams}")
+        start = srv.receivers[0].status.stream_no
+        print(f"resume: {srv.n_streams} streams continue at stream block "
+              f"{start} with the checkpoint's config")
+        return srv, evs, start
+    cfg = serve_config(args)
+    srv = StreamServer(cfg, args.streams, device=args.device)
+    return srv, [Evaluator(cfg) for _ in range(srv.n_streams)], 0
+
+
+def serve_source(args, cfg: ReceiverConfig, start: int, device):
+    """(provider, n_chunks, truth ECEF or None): whole chunks of the
+    `serve` source on `device` from stream block `start` on, built with
+    `cfg`.  A synthetic scenario is synthesized on the device
+    (DeviceScenarioSynth.chunk_planar); a .bin capture is read from
+    block `start` and laid out grouped planar on the device."""
+    import torch
+
+    from gps_sdr_tpu_torch.ops.tracking import to_grouped_planar
+
+    t = cfg.no_sec
+    if args.source == "synth":
+        from gps_sdr_tpu_torch.models.scenario import make_scenario
+        from gps_sdr_tpu_torch.models.scenario_dev import DeviceScenarioSynth
+        sec = args.sec if args.max_sec is None else min(args.sec,
+                                                        args.max_sec)
+        scn = make_scenario(cfg, n_sats=args.sats, seed=args.seed,
+                            duration_sec=sec + 12.0)
+        synth = DeviceScenarioSynth(scn, noise_std=args.noise,
+                                    knot_interp_step=0.1, device=device)
+        n_chunks = max(0, int(sec / (t * cfg.block_sec)) - start // t)
+        return ((lambda first, n: synth.chunk_planar(start + first, n)),
+                n_chunks, scn.rec_ecef)
+    from gps_sdr_tpu_torch.runtime.sources import replay_blocks
+    max_blocks = (None if args.max_sec is None
+                  else max(0, int(args.max_sec / cfg.block_sec) - start))
+    blocks = list(replay_blocks(args.source, cfg, start_stream=start,
+                                max_blocks=max_blocks))
+    n_chunks = len(blocks) // t
+    if not n_chunks:
+        return None, 0, None
+    buf = to_grouped_planar(cfg, torch.as_tensor(
+        np.stack(blocks[:n_chunks * t])).to(device))
+    del blocks
+    return (lambda first, n: buf[first:first + n]), n_chunks, None
+
+
+def run_serve(args) -> int:
+    """S receivers off one card (the serving path): fused windows, the
+    sparse window consume, cross-stream batched evaluation
+    (process_many)."""
+    from gps_sdr_tpu_torch.runtime.evaluator import process_many
+
+    srv, evs, start = open_server(args)
+    cfg = srv.cfg
+    provider, n_chunks, truth = serve_source(args, cfg, start, srv.device)
+    t0 = time.time()
+    pend = []
+    for s, epoch in srv.run(provider, n_chunks):
+        pend.append((evs[s], epoch))
+        if len(pend) == srv.n_streams:
+            process_many(pend)
+            pend = []
+    if pend:
+        process_many(pend)
+    wall = time.time() - t0
+    sig = n_chunks * cfg.no_sec * cfg.block_sec
+
+    for s, ev in enumerate(evs):
+        n_fix = len(ev.positions)
+        line = f"stream {s}: {n_fix} fixes"
+        if n_fix and ev.stat is not None:
+            line += (f", mean ECEF ({ev.stat[0][0]:.1f}, "
+                     f"{ev.stat[0][1]:.1f}, {ev.stat[0][2]:.1f})")
+            if truth is not None:
+                err = float(np.linalg.norm(ev.stat[0] - truth))
+                line += f", err vs truth {err:.2f} m"
+        print(line)
+    stages = ", ".join(f"{k}: {v:.2f}" for k, v in srv.perf.items())
+    print(f"{srv.n_streams} streams x {sig:.1f} s in {wall:.2f} s = "
+          f"{srv.n_streams * sig / max(wall, 1e-9):.1f}x aggregate realtime "
+          f"on {srv.device}; stages {{{stages}}}")
+
+    if args.out:
+        from gps_sdr_tpu_torch.utils import io
+        for s, ev in enumerate(evs):
+            io.save_results(f"{args.out}_s{s}", sat_results=ev.sat_results,
+                            positions=ev.positions)
+    if args.save_state:
+        from gps_sdr_tpu_torch.runtime.checkpoint import save_server
+        save_server(srv, evs, args.save_state)
+        print(f"checkpointed {srv.n_streams} streams to {args.save_state}")
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     why = _not_ported(args)
@@ -390,6 +544,8 @@ def main(argv=None) -> int:
         print(f"error: {why}; use `python -m gps_sdr_tpu` for it",
               file=sys.stderr)
         return 2
+    if args.mode == "serve":
+        return run_serve(args)
     return run_in_process(args, make_config(args))
 
 

@@ -12,9 +12,16 @@
 // code*sin(s(i+1)) (and their head-masked, i < w, variants), combined per
 // period with cos/sin(s*cs*q) and per block with cos/sin(base_b).
 //
-// Block-stationary: grid (K, cs / kTile), one thread-block cluster of
-// cs / kTile CTAs per block (16 at the product's cs = 2048, so the
-// cluster size is non-portable).  Each CTA
+// Block-stationary: grid (K, cs / kTile, S), one thread-block cluster of
+// cs / kTile CTAs per block and stream (16 at the product's cs = 2048, so
+// the cluster size is non-portable).  The z axis is the stream axis of the
+// serving path (the batch axis Pallas's vmap rule gives the TPU kernel):
+// the CTAs of stream z serve its C channels, which sit at z*C on the
+// flattened S*C channel axis of every parameter and result, and read its
+// chunk, chunk_stride samples after stream z-1's (0: every stream reads one
+// shared chunk, whose blocks then come from L2 after the first stream's
+// read).  Nothing else depends on z, so a launch over S streams gives the
+// bits of S single-stream launches.  Each CTA
 //   1. loads the per-channel parameters, then stages its [n_cyc, kTile]
 //      complex64 slab of block step*K + b in shared memory with cp.async
 //      (rows padded to kRow = kTile + 4 complex, so fragment loads hit
@@ -59,16 +66,19 @@
 namespace cg = cooperative_groups;
 
 struct WipeoffArgs {
-  const float2* chunk;  // complex64 [T, n_cyc*cs], the whole chunk
-  const float* codes;   // f32 [C, cs], unrolled codes
-  const float* s;       // f32 [C], 2*pi*freq/fs (rad/sample)
-  const float* snp;     // f32 [C], (s*ngps) mod 2*pi, per-block advance
-  const float* phase;   // f32 [C], NCO phase at the step's first sample
-  const int* wipe;      // i32 [C, K], wipeoff delays in [0, cs)
-  float2* center;       // complex64 [K, C, cs], mean center period
-  float2* head;         // complex64 [C, K]
-  float2* seg;          // complex64 [C, K, n_cyc]
-  int n_ch, k, step, n_cyc, cs, corr_avg;
+  const float2* chunk;  // complex64 [T, n_cyc*cs] per stream, whole chunks
+  const float* codes;   // f32 [S*C, cs], unrolled codes
+  const float* s;       // f32 [S*C], 2*pi*freq/fs (rad/sample)
+  const float* snp;     // f32 [S*C], (s*ngps) mod 2*pi, per-block advance
+  const float* phase;   // f32 [S*C], NCO phase at the step's first sample
+  const int* wipe;      // i32 [S*C, K], wipeoff delays in [0, cs)
+  float2* center;       // complex64 [K, S*C, cs], mean center period
+  float2* head;         // complex64 [S*C, K]
+  float2* seg;          // complex64 [S*C, K, n_cyc]
+  long long chunk_stride;  // samples from one stream's chunk to the next's
+                           // (0: one chunk shared by every stream)
+  int n_ch, k, step, n_cyc, cs, corr_avg;  // n_ch: channels a stream (C)
+  int n_streams;                           // S, the grid's z extent
 };
 
 namespace {
@@ -178,17 +188,20 @@ __global__ void __launch_bounds__(kThreads) wipeoff_kernel(WipeoffArgs a) {
   const int b = blockIdx.x, tile = blockIdx.y, n_tiles = gridDim.y;
   const int cs = a.cs, n_cyc = a.n_cyc, n_ch = a.n_ch, k = a.k;
   const int col0 = tile * kTile, sl = n_cyc + 1;
+  // this stream's first channel on the flattened S*C axis, and that axis
+  const int ch0 = blockIdx.z * n_ch, n_all = gridDim.z * n_ch;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
   // 1. the per-channel parameters and the block's rotation, then the
   //    slab, asynchronously (16 B = two samples a copy)
   for (int c = tid; c < n_ch; c += kThreads) {
-    m.s[c] = a.s[c];
-    m.w[c] = a.wipe[c * k + b];
-    sincosf(a.phase[c] + a.snp[c] * (float)b, &m.sb[c], &m.cb[c]);
+    m.s[c] = a.s[ch0 + c];
+    m.w[c] = a.wipe[(ch0 + c) * k + b];
+    sincosf(a.phase[ch0 + c] + a.snp[ch0 + c] * (float)b, &m.sb[c],
+            &m.cb[c]);
   }
-  const float2* blk =
-      a.chunk + (size_t)(a.step * k + b) * n_cyc * cs + col0;
+  const float2* blk = a.chunk + (size_t)blockIdx.z * a.chunk_stride +
+                      (size_t)(a.step * k + b) * n_cyc * cs + col0;
   for (int v = tid; v < n_cyc * (kTile / 2); v += kThreads) {
     const int q = v / (kTile / 2), j = 2 * (v % (kTile / 2));
     cp_async<16>(m.x + q * kRow + j, blk + (size_t)q * cs + j);
@@ -203,7 +216,7 @@ __global__ void __launch_bounds__(kThreads) wipeoff_kernel(WipeoffArgs a) {
     const int c = v / kTile, j = v % kTile;
     int src = col0 + j - m.w[c];
     if (src < 0) src += cs;
-    cp_async<4>(m.code + v, a.codes + (size_t)c * cs + src);
+    cp_async<4>(m.code + v, a.codes + (size_t)(ch0 + c) * cs + src);
   }
   asm volatile("cp.async.commit_group;\n" ::);
   if (tid == 0) {
@@ -365,9 +378,9 @@ __global__ void __launch_bounds__(kThreads) wipeoff_kernel(WipeoffArgs a) {
     }
     const int c = v / sl, r = v % sl;
     if (r == 0)
-      a.head[(size_t)c * k + b] = acc;
+      a.head[(size_t)(ch0 + c) * k + b] = acc;
     else
-      a.seg[((size_t)c * k + b) * n_cyc + r - 1] = acc;
+      a.seg[((size_t)(ch0 + c) * k + b) * n_cyc + r - 1] = acc;
   }
   // done reading the other CTAs' shares; none may leave before all are
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
@@ -395,7 +408,7 @@ __global__ void __launch_bounds__(kThreads) wipeoff_kernel(WipeoffArgs a) {
       const int i = c * kTile + j;
       const float cp = m.cph[i], sp = m.sph[i];   // * exp(-i s (i+1))
       const float ur = pr * cp + pi * sp, ui = pi * cp - pr * sp;
-      a.center[((size_t)b * n_ch + c) * cs + col0 + j] =
+      a.center[((size_t)b * n_all + ch0 + c) * cs + col0 + j] =
           make_float2((m.cb[c] * ur + m.sb[c] * ui) * inv_ca,
                       (m.cb[c] * ui - m.sb[c] * ur) * inv_ca);
     }
@@ -412,7 +425,8 @@ extern "C" int gsdr_wipeoff_launch(const WipeoffArgs* a, void* stream) {
   if (a->cs % kTile != 0 || n_tiles > kMaxTiles || a->n_cyc <= 0 ||
       a->n_cyc % 8 != 0 || kWarps % (a->n_cyc / 8) != 0 ||
       a->corr_avg <= 0 || a->corr_avg > a->n_cyc ||
-      a->corr_avg > kMaxCa ||
+      a->corr_avg > kMaxCa || a->n_streams <= 0 || a->n_streams > 65535 ||
+      a->chunk_stride < 0 || a->chunk_stride % 2 != 0 ||
       reinterpret_cast<uintptr_t>(a->chunk) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const size_t smem = carve(*a, nullptr, nullptr);
@@ -427,7 +441,7 @@ extern "C" int gsdr_wipeoff_launch(const WipeoffArgs* a, void* stream) {
     if (e != cudaSuccess) return (int)e;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a->k, n_tiles, 1);
+  cfg.gridDim = dim3(a->k, n_tiles, a->n_streams);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;

@@ -16,9 +16,16 @@
 // and every product runs on CUDA cores (csrc/wipeoff.cu is the
 // tensor-core formulation).
 //
-// One launch: grid (K, cs / kTile), the cs / kTile CTAs of a block form a
-// thread-block cluster (16 at the product's cs = 2048, a non-portable
-// size).  A CTA has 4 main warps and 4 helper warps:
+// One launch: grid (K, cs / kTile, S), the cs / kTile CTAs of a block and
+// stream form a thread-block cluster (16 at the product's cs = 2048, a
+// non-portable size).  The z axis is the stream axis of the serving path
+// (the batch axis Pallas's vmap rule gives the TPU kernel): the CTAs of
+// stream z serve its C channels, at z*C on the flattened S*C channel axis of
+// every parameter and result, and read its chunk, chunk_stride floats after
+// stream z-1's (0: one chunk shared by every stream, re-read from L2 by all
+// but the first).  Nothing else depends on z, so a launch over S streams
+// gives the bits of S single-stream launches; the channel limit (kMaxCh) is
+// per stream.  A CTA has 4 main warps and 4 helper warps:
 //   1. every thread loads the parameters of its (channel, column) table
 //      entries; these few loads go ahead of the slab's traffic;
 //   2. the helpers start the copy of the CTA's [2, n_cyc, kTile] slab of
@@ -71,16 +78,20 @@
 namespace cg = cooperative_groups;
 
 struct WipeoffVpuArgs {
-  const float* chunk;   // f32 [T, 2, n_cyc, cs] grouped planar, whole chunk
-  const float* codes;   // f32 [C, cs], unrolled codes
-  const float* s;       // f32 [C], 2*pi*freq/fs (rad/sample)
-  const float* snp;     // f32 [C], (s*ngps) mod 2*pi, per-block advance
-  const float* phase;   // f32 [C], NCO phase at the step's first sample
-  const int* wipe;      // i32 [C, K], wipeoff delays in [0, cs)
-  float2* center;       // complex64 [K, C, cs], mean center period
-  float2* head;         // complex64 [C, K]
-  float2* seg;          // complex64 [C, K, n_cyc]
-  int n_ch, k, step, n_cyc, cs, corr_avg;
+  const float* chunk;   // f32 [T, 2, n_cyc, cs] grouped planar per stream,
+                        // whole chunks
+  const float* codes;   // f32 [S*C, cs], unrolled codes
+  const float* s;       // f32 [S*C], 2*pi*freq/fs (rad/sample)
+  const float* snp;     // f32 [S*C], (s*ngps) mod 2*pi, per-block advance
+  const float* phase;   // f32 [S*C], NCO phase at the step's first sample
+  const int* wipe;      // i32 [S*C, K], wipeoff delays in [0, cs)
+  float2* center;       // complex64 [K, S*C, cs], mean center period
+  float2* head;         // complex64 [S*C, K]
+  float2* seg;          // complex64 [S*C, K, n_cyc]
+  long long chunk_stride;  // floats from one stream's chunk to the next's
+                           // (0: one chunk shared by every stream)
+  int n_ch, k, step, n_cyc, cs, corr_avg;  // n_ch: channels a stream (C)
+  int n_streams;                           // S, the grid's z extent
 };
 
 namespace {
@@ -222,6 +233,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int b = blockIdx.x, tile = blockIdx.y, n_tiles = gridDim.y;
   const int cs = a.cs, n_ch = a.n_ch, k = a.k, ca = a.corr_avg;
   const int col0 = tile * kTile, sl = kNCyc + 1;
+  // this stream's first channel on the flattened S*C axis, and that axis
+  const int ch0 = blockIdx.z * n_ch, n_all = gridDim.z * n_ch;
   const int tid = threadIdx.x;
   const bool helper = tid >= kMainThreads;
   const int first = (kNCyc - ca) / 2;
@@ -239,21 +252,21 @@ __global__ void __launch_bounds__(kThreads, 2)
   float ps[kEnt], pbase[kEnt], code[kEnt];
 #pragma unroll
   for (int i = 0; i < kEnt; ++i) {
-    const int v = tid + i * kThreads, c = min(v, n_ent - 1) / kTile;
+    const int v = tid + i * kThreads, c = ch0 + min(v, n_ent - 1) / kTile;
     src[i] = col0 + v % kTile - __ldg(a.wipe + c * k + b);
     ps[i] = __ldg(a.s + c);
     pbase[i] = __fadd_rn(__ldg(a.phase + c),
                          __fmul_rn(__ldg(a.snp + c), (float)b));
   }
-  if (tid < n_ch) m.w[tid] = __ldg(a.wipe + tid * k + b);
+  if (tid < n_ch) m.w[tid] = __ldg(a.wipe + (ch0 + tid) * k + b);
 
   // 2. the helpers start the slab's copy: row = plane * n_cyc + q, rows cs
   //    floats apart in the chunk.  Granule gr of row `row` sits at
   //    gr ^ ((row / kP) % 8): the lanes of a main warp, kP rows apart, then
   //    read different banks.
   if (helper) {
-    const float* blk =
-        a.chunk + (size_t)(a.step * k + b) * 2 * kNCyc * cs + col0;
+    const float* blk = a.chunk + (size_t)blockIdx.z * a.chunk_stride +
+                       (size_t)(a.step * k + b) * 2 * kNCyc * cs + col0;
     for (int v = tid - kMainThreads; v < 2 * kNCyc * kGran;
          v += kHelpThreads) {
       const int row = v / kGran, gr = v % kGran;
@@ -272,15 +285,16 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int v = tid + i * kThreads;
     code[i] = 0.f;
     if (v < n_ent)
-      code[i] = __ldg(a.codes + (size_t)(v / kTile) * cs +
+      code[i] = __ldg(a.codes + (size_t)(ch0 + v / kTile) * cs +
                       (src[i] < 0 ? src[i] + cs : src[i]));
   }
   if (!helper) {
     for (int v = tid; v < n_ch * kNCyc; v += kMainThreads) {
       const int c = v / kNCyc, q = v % kNCyc;
       float sn, cn;
-      sincosf(__fmul_rn(__fmul_rn(__ldg(a.s + c), (float)cs), (float)q), &sn,
-              &cn);
+      sincosf(__fmul_rn(__fmul_rn(__ldg(a.s + ch0 + c), (float)cs),
+                        (float)q),
+              &sn, &cn);
       m.cq[v] = make_float2(cn, sn);
       if (q >= first && q < first + ca)
         m.cen[c * kMaxCa + q - first] = make_float2(cn, sn);
@@ -392,7 +406,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         pi += xci[u + 1] * f.z - xcr[u + 1] * f.w;
       }
       const float2 o = rotate(pr, pi, m.osc[c * kTile + j]);
-      a.center[((size_t)b * n_ch + c) * cs + col0 + j] =
+      a.center[((size_t)b * n_all + ch0 + c) * cs + col0 + j] =
           make_float2(o.x * inv_ca, o.y * inv_ca);
     }
     main_loop(c_split, n_ch);
@@ -465,9 +479,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
     const int v = tile + n_tiles * slot, c = v / sl, r = v % sl;
     if (r == 0)
-      a.head[(size_t)c * k + b] = acc;
+      a.head[(size_t)(ch0 + c) * k + b] = acc;
     else
-      a.seg[((size_t)c * k + b) * kNCyc + r - 1] = acc;
+      a.seg[((size_t)(ch0 + c) * k + b) * kNCyc + r - 1] = acc;
   }
 }
 
@@ -485,7 +499,7 @@ cudaError_t launch(const WipeoffVpuArgs& a, cudaStream_t stream) {
     if (e != cudaSuccess) return e;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.k, n_tiles, 1);
+  cfg.gridDim = dim3(a.k, n_tiles, a.n_streams);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -514,6 +528,8 @@ extern "C" int gsdr_wipeoff_vpu_launch(const WipeoffVpuArgs* a,
   if (a->cs <= 0 || a->cs % kTile != 0 || a->cs / kTile > kMaxTiles ||
       a->n_ch <= 0 || a->n_ch > kMaxCh || a->k <= 0 || a->corr_avg <= 0 ||
       a->corr_avg > a->n_cyc || a->corr_avg > kMaxCa ||
+      a->n_streams <= 0 || a->n_streams > 65535 || a->chunk_stride < 0 ||
+      a->chunk_stride % 4 != 0 ||
       reinterpret_cast<uintptr_t>(a->chunk) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;

@@ -1,14 +1,17 @@
 """Device time of the port's kernels and of its two slices, from
 torch.profiler (CUPTI), on one NVIDIA GPU.
 
-    python -m gps_sdr_tpu_torch.kernel_profile [--out PATH]
+    python -m gps_sdr_tpu_torch.kernel_profile [--out PATH] [--only PART ...]
 
   1. each hand-written kernel at the product shapes (11 channels, K=8,
      n_cyc=32, cs=2048), 50 calls of its wrapper under the profiler: the
      kernel's own device time per call (the wrapper's host work is not
      in it), beside the wall time per call.  The cheap kernel runs twice:
      on fresh states ("cheap") and on slice-like states ("cheap_slice":
-     locked channels, full wrapped rings, counters at their caps);
+     locked channels, full wrapped rings, counters at their caps).  Then
+     each kernel's stream-axis launch for 3 and 8 streams of those 11
+     channels ("<name>_S3", "<name>_S8": one shared chunk, the cheap
+     kernel on slice-like states);
   2. the host-fed replay slice of chip_smoke.py phase 4 (the
      synthetic_fix default scenario, 40 s of IQ synthesized on the host,
      through Session.run_source at use_mxu_wipeoff=True) and the
@@ -18,7 +21,15 @@ torch.profiler (CUPTI), on one NVIDIA GPU.
      once unprofiled for its wall, then once profiled whole: the
      device's busy time (sum of its kernels and copies), its share of
      the unprofiled wall, the device-to-device copies per K-step, and
-     the device time by item.
+     the device time by item;
+  3. the serving slice of chip_smoke.py phase 7b: 8 replicas of that
+     scenario synthesized on the card, through StreamServer with the
+     CLI's `serve` settings at ReceiverConfig() (kernel 1), evaluated
+     with process_many: warmed up, run unprofiled for its wall and the
+     launch counts, then profiled whole: the kernel bodies per K-step
+     (one launch of each serves all 8 streams), the device's busy share
+     of the wall, the launches per K-step of a stream, the server's
+     stage totals and the device time by item.
 Prints one JSON object (also written to PATH with --out).  Fails without
 a GPU.
 """
@@ -139,6 +150,27 @@ def profile_kernels(cfg, dev, reps: int = 50) -> dict:
         cfg, k, x["s"], x["snp"], x["phase"], x["wipe"], x["planar"], 1,
         x["codes"])
     delay = x["wipe"].clone()
+
+    def streams(n):
+        """The stream axis: n copies of the channels' inputs over one
+        shared chunk, and the stacked state."""
+        cat = {key: torch.cat([x[key]] * n) for key in
+               ("s", "snp", "phase", "wipe", "codes")}
+        cat["st"] = tracking.ChannelState(*(torch.cat([v] * n)
+                                            for v in st_slice))
+        cat["head"], cat["seg"] = torch.cat([head] * n), torch.cat([seg] * n)
+        return cat
+
+    def on_streams(name, n):
+        y = streams(n)
+        if name == "cheap":
+            return lambda: hopper_cheap.cheap_scan(
+                cfg, k, y["head"], y["seg"], y["wipe"], y["wipe"], y["st"])
+        fn = getattr(hopper_wipeoff, name)
+        chunk = x["cplx"] if name == "mix_wipeoff" else x["planar"]
+        return lambda: fn(cfg, k, y["s"], y["snp"], y["phase"], y["wipe"],
+                          chunk, 1, y["codes"], n)
+
     calls = {
         "wipeoff": lambda: hopper_wipeoff.mix_wipeoff(
             cfg, k, x["s"], x["snp"], x["phase"], x["wipe"], x["cplx"], 1,
@@ -155,6 +187,14 @@ def profile_kernels(cfg, dev, reps: int = 50) -> dict:
     names = {"wipeoff": ("wipeoff_kernel",),
              "wipeoff_vpu": ("wipeoff_vpu_kernel",),
              "cheap": ("cheap_kernel",), "cheap_slice": ("cheap_kernel",)}
+    # the stream axis, one launch for n streams (slice-like states)
+    for n in (3, 8):
+        for name, fn, kernel in (("wipeoff", "mix_wipeoff", "wipeoff_kernel"),
+                                 ("wipeoff_vpu", "mix_wipeoff_vpu",
+                                  "wipeoff_vpu_kernel"),
+                                 ("cheap", "cheap", "cheap_kernel")):
+            calls[f"{name}_S{n}"] = on_streams(fn, n)
+            names[f"{name}_S{n}"] = (kernel,)
     out = {}
     for name, fn in calls.items():
         for _ in range(5):
@@ -261,9 +301,88 @@ def profile_device_slice(cfg, dev, sec: float = 40.0) -> dict:
     return {"signal_s": n_chunks * cfg.no_sec * cfg.block_sec, **res}
 
 
+def profile_serving_slice(cfg, dev, n_streams: int = 8,
+                          sec: float = 40.0) -> dict:
+    """The serving slice: n_streams replicas of the scenario through
+    StreamServer (kernel 1 and cheap on the stream axis)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gps_sdr_tpu_torch.models.scenario import make_scenario
+    from gps_sdr_tpu_torch.models.scenario_dev import DeviceScenarioSynth
+    from gps_sdr_tpu_torch.ops import hopper_cheap, hopper_wipeoff
+    from gps_sdr_tpu_torch.runtime.evaluator import Evaluator, process_many
+    from gps_sdr_tpu_torch.runtime.serving import StreamServer
+
+    cfg = cfg.replace(chunks_per_download=16, download_windows_in_flight=4,
+                      defer_subframe_poll=True, epoch_per_window=True)
+    scn = make_scenario(cfg, n_sats=N_SATS, seed=SEED,
+                        duration_sec=sec + 12.0)
+    synth = DeviceScenarioSynth(scn, noise_std=NOISE, knot_interp_step=0.1,
+                                device=dev)
+    n_chunks = int(round(sec / cfg.block_sec)) // cfg.no_sec
+    counters = {"wipeoff": hopper_wipeoff.mix_wipeoff,
+                "wipeoff_vpu": hopper_wipeoff.mix_wipeoff_vpu,
+                "cheap": hopper_cheap.cheap_scan}
+
+    def run(n):
+        srv = StreamServer(cfg, n_streams, device=dev)
+        evs = [Evaluator(cfg) for _ in range(n_streams)]
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pend = []
+        for s, epoch in srv.run(synth.chunk_planar, n):
+            pend.append((evs[s], epoch))
+            if len(pend) == n_streams:
+                process_many(pend)
+                pend = []
+        if pend:
+            process_many(pend)
+        torch.cuda.synchronize()
+        return srv, evs, time.perf_counter() - t0
+
+    run(cfg.chunks_per_download + 1)
+    srv, evs, wall = run(n_chunks)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        srv_p, _, wall_prof = run(n_chunks)
+    times = _device_times(prof)
+    total = sum(us for us, _ in times.values())
+    k_steps = srv_p.receivers[0].status.k_steps
+    bodies = {name: sum(us for key, (us, _) in times.items()
+                        if kernel in key) / max(k_steps, 1)
+              for name, kernel in (("wipeoff", "wipeoff_kernel"),
+                                   ("cheap", "cheap_kernel"))}
+    top = sorted(times.items(), key=lambda kv: -kv[1][0])[:15]
+    sig = n_chunks * cfg.no_sec * cfg.block_sec
+    return {"streams": n_streams, "signal_s": sig, "wall_s": wall,
+            "aggregate_rtf": n_streams * sig / wall,
+            "wall_s_profiled": wall_prof,
+            "device_busy_s": total / 1e6,
+            "device_busy_share": total / 1e6 / wall,
+            "k_steps_per_stream": k_steps,
+            "launches": launches,
+            "launches_per_k_step": {n: v / max(k_steps, 1)
+                                    for n, v in launches.items()},
+            "kernel_us_per_k_step": bodies,
+            "perf_s": dict(srv.perf),
+            "err_m": [float(np.linalg.norm(ev.stat[0] - scn.rec_ecef))
+                      if ev.stat is not None else None for ev in evs],
+            "top_device_us": {k: {"us": us, "calls": n}
+                              for k, (us, n) in top}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write the JSON here")
+    ap.add_argument("--only", nargs="+", default=None,
+                    choices=("kernels", "replay_slice", "device_slice",
+                             "serving_slice"),
+                    help="run only these parts (default: all)")
     args = ap.parse_args(argv)
     import torch
 
@@ -280,9 +399,14 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     cfg = ReceiverConfig()
-    res = {"card": card, "kernels": profile_kernels(cfg, dev),
-           "replay_slice": profile_replay_slice(cfg, dev),
-           "device_slice": profile_device_slice(cfg, dev)}
+    parts = {"kernels": profile_kernels,
+             "replay_slice": profile_replay_slice,
+             "device_slice": profile_device_slice,
+             "serving_slice": profile_serving_slice}
+    res = {"card": card}
+    for name, fn in parts.items():
+        if args.only is None or name in args.only:
+            res[name] = fn(cfg, dev)
     text = json.dumps(res, indent=1)
     print(text)
     if args.out:

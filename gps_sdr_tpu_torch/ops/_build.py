@@ -31,22 +31,23 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 
 
+_WIPEOFF_FIELDS = [(name, _P) for name in (
+    "chunk", "codes", "s", "snp", "phase", "wipe", "center", "head",
+    "seg")] + [("chunk_stride", ctypes.c_longlong)] + [
+    (name, ctypes.c_int) for name in (
+        "n_ch", "k", "step", "n_cyc", "cs", "corr_avg", "n_streams")]
+
+
 class WipeoffArgs(ctypes.Structure):
     """csrc/wipeoff.cu struct WipeoffArgs."""
 
-    _fields_ = [(name, _P) for name in (
-        "chunk", "codes", "s", "snp", "phase", "wipe", "center", "head",
-        "seg")] + [(name, ctypes.c_int) for name in (
-            "n_ch", "k", "step", "n_cyc", "cs", "corr_avg")]
+    _fields_ = _WIPEOFF_FIELDS
 
 
 class WipeoffVpuArgs(ctypes.Structure):
     """csrc/wipeoff_vpu.cu struct WipeoffVpuArgs."""
 
-    _fields_ = [(name, _P) for name in (
-        "chunk", "codes", "s", "snp", "phase", "wipe", "center", "head",
-        "seg")] + [(name, ctypes.c_int) for name in (
-            "n_ch", "k", "step", "n_cyc", "cs", "corr_avg")]
+    _fields_ = _WIPEOFF_FIELDS
 
 
 class CheapState(ctypes.Structure):

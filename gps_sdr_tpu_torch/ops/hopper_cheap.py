@@ -29,6 +29,11 @@ hundreds of small PyTorch ops of the plain version.  The kernel reads
 the carried state and writes the new state, rings included, into fresh
 tensors: `st` is never modified and never copied.
 
+The serving path (runtime/serving.py) runs the channels of S streams as
+one flattened S*C channel axis, so a K-step of all streams is one
+launch of S*C CTAs; channels never interact, and stream_no0 is one
+number for all streams.
+
 The plain PyTorch twin below computes the same results; a CPU tensor
 runs it, a CUDA tensor launches the kernel (or raises).
 """

@@ -51,6 +51,17 @@ shared memory (no second kernel, no global scratch, no float atomics).
     warps take the center mean beside it.  _mix_wipeoff_vpu_math mirrors
     that order of arithmetic on the CPU.
 
+The stream axis (the serving path, runtime/serving.py): every argument
+and result may carry the channels of S streams on one flattened S*C
+channel axis, stream after stream, with a chunk shared by all streams
+([T, ...], as replicas of one capture read it) or one chunk a stream
+([S, T, ...], independent front ends).  The kernels take S as the z
+extent of their grid, as Pallas's vmap rule gives the TPU kernels a
+stream axis, so a K-step is one launch whatever S is; a shared chunk is
+read by every stream's CTAs (from L2 after the first: 8 blocks of 512 KB
+a step at the product, against 50 MB of L2).  A launch over S streams
+gives the bits of S single-stream launches.
+
 The plain PyTorch versions below compute the same quantities with the
 same arithmetic; a CPU tensor runs them, a CUDA tensor launches the
 kernel (or raises).
@@ -106,16 +117,57 @@ def _mix_wipeoff_math(cfg: ReceiverConfig, k: int, s: torch.Tensor,
     return center.transpose(0, 1).contiguous(), head, seg
 
 
-def mix_wipeoff_plain(cfg: ReceiverConfig, k: int, s: torch.Tensor,
-                      snp: torch.Tensor, phase: torch.Tensor,
-                      wipe: torch.Tensor, chunk: torch.Tensor, step: int,
-                      codes: torch.Tensor):
-    """Plain PyTorch version of the csrc/wipeoff.cu kernel (same
-    arguments and results as mix_wipeoff)."""
+def _stream_chunks(chunk: torch.Tensor, ndim: int, n_streams: int,
+                   name: str) -> bool:
+    """Whether `chunk` holds one chunk a stream ([S, T, ...], ndim + 1
+    axes) rather than one chunk every stream reads ([T, ...], ndim
+    axes); raises on anything else."""
+    if n_streams < 1:
+        raise ValueError(f"{name}: n_streams must be >= 1, got {n_streams}")
+    if chunk.ndim == ndim:
+        return False
+    if chunk.ndim == ndim + 1 and chunk.shape[0] == n_streams:
+        return True
+    raise ValueError(f"{name}: chunk must be [T, ...] (shared) or "
+                     f"[{n_streams}, T, ...] (one a stream), got "
+                     f"{tuple(chunk.shape)}")
+
+
+def _over_streams(one, ndim: int, name: str, cfg: ReceiverConfig, k: int,
+                  s, snp, phase, wipe, chunk, step: int, codes,
+                  n_streams: int):
+    """The single-stream plain version `one` run stream by stream over
+    the flattened S*C channel axis, its results joined as the kernels
+    lay them out (center [K, S*C, cs], head [S*C, K], seg [S*C, K,
+    n_cyc])."""
+    per_stream = _stream_chunks(chunk, ndim, n_streams, name)
+    if n_streams == 1 and not per_stream:
+        return one(cfg, k, s, snp, phase, wipe, chunk, step, codes)
+    c = s.shape[0] // n_streams
+    parts = []
+    for z in range(n_streams):
+        ch = slice(z * c, (z + 1) * c)
+        parts.append(one(cfg, k, s[ch], snp[ch], phase[ch], wipe[ch],
+                         chunk[z] if per_stream else chunk, step, codes[ch]))
+    center, head, seg = zip(*parts)
+    return torch.cat(center, dim=1), torch.cat(head), torch.cat(seg)
+
+
+def _mix_wipeoff_one(cfg, k, s, snp, phase, wipe, chunk, step, codes):
     blocks = chunk[step * k:(step + 1) * k].reshape(
         k, cfg.n_cyc, cfg.code_samples)
     return _mix_wipeoff_math(cfg, k, s, snp, phase, wipe, blocks.real,
                              blocks.imag, codes)
+
+
+def mix_wipeoff_plain(cfg: ReceiverConfig, k: int, s: torch.Tensor,
+                      snp: torch.Tensor, phase: torch.Tensor,
+                      wipe: torch.Tensor, chunk: torch.Tensor, step: int,
+                      codes: torch.Tensor, n_streams: int = 1):
+    """Plain PyTorch version of the csrc/wipeoff.cu kernel (same
+    arguments and results as mix_wipeoff), stream by stream."""
+    return _over_streams(_mix_wipeoff_one, 2, "wipeoff", cfg, k, s, snp,
+                         phase, wipe, chunk, step, codes, n_streams)
 
 
 def _tf32(x: torch.Tensor, truncate: bool = False) -> torch.Tensor:
@@ -245,15 +297,21 @@ def _mix_wipeoff_vpu_math(cfg: ReceiverConfig, k: int, s: torch.Tensor,
     return center.transpose(0, 1).contiguous(), lo[..., 0], seg
 
 
-def mix_wipeoff_vpu_plain(cfg: ReceiverConfig, k: int, s: torch.Tensor,
-                          snp: torch.Tensor, phase: torch.Tensor,
-                          wipe: torch.Tensor, chunk: torch.Tensor,
-                          step: int, codes: torch.Tensor):
-    """Plain PyTorch version of the csrc/wipeoff_vpu.cu kernel (same
-    arguments and results as mix_wipeoff_vpu)."""
+def _mix_wipeoff_vpu_one(cfg, k, s, snp, phase, wipe, chunk, step, codes):
     blocks = chunk[step * k:(step + 1) * k]                # [K, 2, n, cs]
     return _mix_wipeoff_math(cfg, k, s, snp, phase, wipe, blocks[:, 0],
                              blocks[:, 1], codes)
+
+
+def mix_wipeoff_vpu_plain(cfg: ReceiverConfig, k: int, s: torch.Tensor,
+                          snp: torch.Tensor, phase: torch.Tensor,
+                          wipe: torch.Tensor, chunk: torch.Tensor,
+                          step: int, codes: torch.Tensor,
+                          n_streams: int = 1):
+    """Plain PyTorch version of the csrc/wipeoff_vpu.cu kernel (same
+    arguments and results as mix_wipeoff_vpu), stream by stream."""
+    return _over_streams(_mix_wipeoff_vpu_one, 4, "wipeoff_vpu", cfg, k, s,
+                         snp, phase, wipe, chunk, step, codes, n_streams)
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, dev) -> None:
@@ -265,28 +323,62 @@ def _check(t: torch.Tensor, name: str, dtype, shape, dev) -> None:
             f"{t.device}")
 
 
+def _launch(name: str, args_type, cfg: ReceiverConfig, k: int, s, snp,
+            phase, wipe, chunk, step: int, codes, n_streams: int,
+            per_stream: bool, block: tuple):
+    """Check the arguments of either wipeoff kernel (chunk blocks of
+    `block` = (dtype, shape)), allocate its results and launch it over
+    n_streams streams: grid z = S, each stream's chunk chunk_stride
+    elements after the previous one's (0 for a shared chunk)."""
+    cs, n_cyc = cfg.code_samples, cfg.n_cyc
+    n_all, dev = s.shape[0], chunk.device
+    if n_all % n_streams:
+        raise ValueError(f"{name} kernel: {n_all} channels do not split "
+                         f"into {n_streams} streams")
+    t = chunk.shape[1 if per_stream else 0]
+    if step < 0 or (step + 1) * k > t:
+        raise ValueError(f"{name} kernel: step {step} x K={k} outside "
+                         f"a chunk of {t} blocks")
+    lead = (n_streams, t) if per_stream else (t,)
+    _check(chunk, "chunk", block[0], lead + block[1], dev)
+    _check(codes, "codes", torch.float32, (n_all, cs), dev)
+    for arg, v in (("s", s), ("snp", snp), ("phase", phase)):
+        _check(v, arg, torch.float32, (n_all,), dev)
+    _check(wipe, "wipe", torch.int32, (n_all, k), dev)
+    stride = chunk[0].numel() if per_stream else 0
+    center = torch.empty((k, n_all, cs), dtype=torch.complex64, device=dev)
+    head = torch.empty((n_all, k), dtype=torch.complex64, device=dev)
+    seg = torch.empty((n_all, k, n_cyc), dtype=torch.complex64, device=dev)
+    args = args_type(
+        chunk.data_ptr(), codes.data_ptr(), s.data_ptr(), snp.data_ptr(),
+        phase.data_ptr(), wipe.data_ptr(), center.data_ptr(),
+        head.data_ptr(), seg.data_ptr(), stride, n_all // n_streams, k, step,
+        n_cyc, cs, cfg.corr_avg, n_streams)
+    _build.launch(name, args, dev)
+    return center, head, seg
+
+
 def mix_wipeoff(cfg: ReceiverConfig, k: int, s: torch.Tensor,
                 snp: torch.Tensor, phase: torch.Tensor, wipe: torch.Tensor,
-                chunk: torch.Tensor, step: int, codes: torch.Tensor):
-    """Mix + wipeoff of K-block step `step` of `chunk`, all channels.
+                chunk: torch.Tensor, step: int, codes: torch.Tensor,
+                n_streams: int = 1):
+    """Mix + wipeoff of K-block step `step` of `chunk`, all channels of
+    n_streams streams.
 
-    s, snp, phase: f32[C] (rad/sample, per-block phase advance mod 2*pi,
-    NCO phase at the step's first sample); wipe: i32[C, K] wipeoff
-    delays in [0, cs); chunk: complex64[T, ngps] (the whole chunk: the
-    kernel reads block step*K + b itself); codes: f32[C, cs] unrolled.
-    Returns (center c64[K, C, cs], head c64[C, K], seg c64[C, K, n_cyc]).
+    s, snp, phase: f32[S*C] (rad/sample, per-block phase advance mod
+    2*pi, NCO phase at the step's first sample); wipe: i32[S*C, K]
+    wipeoff delays in [0, cs); chunk: complex64[T, ngps], read by every
+    stream, or [S, T, ngps], one chunk a stream (whole chunks: the kernel
+    reads block step*K + b itself); codes: f32[S*C, cs] unrolled.  The
+    channels of stream z are z*C .. z*C + C - 1.  Returns (center
+    c64[K, S*C, cs], head c64[S*C, K], seg c64[S*C, K, n_cyc]).
     """
     if chunk.device.type == "cpu":
         return mix_wipeoff_plain(cfg, k, s, snp, phase, wipe, chunk, step,
-                                 codes)
+                                 codes, n_streams)
     if chunk.device.type != "cuda":
         raise ValueError(f"wipeoff kernel: no path for {chunk.device}")
     cs, n_cyc = cfg.code_samples, cfg.n_cyc
-    n_ch, dev = s.shape[0], chunk.device
-    t = chunk.shape[0]
-    if step < 0 or (step + 1) * k > t:
-        raise ValueError(f"wipeoff kernel: step {step} x K={k} outside "
-                         f"a chunk of {t} blocks")
     if cs % MXU_TILE or cs // MXU_TILE > MXU_MAX_TILES \
             or n_cyc not in (8, 16, 32, 64) \
             or not 0 < cfg.corr_avg <= min(n_cyc, MXU_MAX_CA):
@@ -295,25 +387,15 @@ def mix_wipeoff(cfg: ReceiverConfig, k: int, s: torch.Tensor,
             f"{MXU_TILE * MXU_MAX_TILES}, n_cyc in 8, 16, 32, 64 and 0 < "
             f"corr_avg <= min(n_cyc, {MXU_MAX_CA}) (cs={cs}, n_cyc={n_cyc}, "
             f"corr_avg={cfg.corr_avg})")
-    _check(chunk, "chunk", torch.complex64, (t, cfg.ngps), dev)
-    _check(codes, "codes", torch.float32, (n_ch, cs), dev)
-    for name, v in (("s", s), ("snp", snp), ("phase", phase)):
-        _check(v, name, torch.float32, (n_ch,), dev)
-    _check(wipe, "wipe", torch.int32, (n_ch, k), dev)
+    per_stream = _stream_chunks(chunk, 2, n_streams, "wipeoff kernel")
     if chunk.data_ptr() % 16:
         raise ValueError("wipeoff kernel: chunk must start on a 16-byte "
                          "boundary (cp.async staging)")
-    center = torch.empty((k, n_ch, cs), dtype=torch.complex64, device=dev)
-    head = torch.empty((n_ch, k), dtype=torch.complex64, device=dev)
-    seg = torch.empty((n_ch, k, n_cyc), dtype=torch.complex64, device=dev)
-    args = _build.WipeoffArgs(
-        chunk.data_ptr(), codes.data_ptr(), s.data_ptr(), snp.data_ptr(),
-        phase.data_ptr(), wipe.data_ptr(), center.data_ptr(),
-        head.data_ptr(), seg.data_ptr(), n_ch, k, step, n_cyc, cs,
-        cfg.corr_avg)
-    _build.launch("wipeoff", args, dev)
+    out = _launch("wipeoff", _build.WipeoffArgs, cfg, k, s, snp, phase,
+                  wipe, chunk, step, codes, n_streams, per_stream,
+                  (torch.complex64, (cfg.ngps,)))
     mix_wipeoff.launches += 1
-    return center, head, seg
+    return out
 
 
 mix_wipeoff.launches = 0
@@ -342,42 +424,28 @@ def _vpu_limits(cfg: ReceiverConfig, n_ch: int, chunk_ptr: int) -> None:
 def mix_wipeoff_vpu(cfg: ReceiverConfig, k: int, s: torch.Tensor,
                     snp: torch.Tensor, phase: torch.Tensor,
                     wipe: torch.Tensor, chunk: torch.Tensor, step: int,
-                    codes: torch.Tensor):
+                    codes: torch.Tensor, n_streams: int = 1):
     """Mix + wipeoff of K-block step `step` of a grouped planar chunk,
-    all channels (csrc/wipeoff_vpu.cu).
+    all channels of n_streams streams (csrc/wipeoff_vpu.cu).
 
-    Arguments as mix_wipeoff, except chunk: f32[T, 2, n_cyc, cs] (re
-    and im planes of every block; the kernel reads block step*K + b
-    itself).  Returns (center c64[K, C, cs], head c64[C, K],
-    seg c64[C, K, n_cyc]), as mix_wipeoff does."""
+    Arguments as mix_wipeoff, except chunk: f32[T, 2, n_cyc, cs], read by
+    every stream, or [S, T, 2, n_cyc, cs], one chunk a stream (re and im
+    planes of every block; the kernel reads block step*K + b itself).
+    At most VPU_MAX_CH channels a stream.  Returns (center
+    c64[K, S*C, cs], head c64[S*C, K], seg c64[S*C, K, n_cyc]), as
+    mix_wipeoff does."""
     if chunk.device.type == "cpu":
         return mix_wipeoff_vpu_plain(cfg, k, s, snp, phase, wipe, chunk,
-                                     step, codes)
+                                     step, codes, n_streams)
     if chunk.device.type != "cuda":
         raise ValueError(f"wipeoff_vpu kernel: no path for {chunk.device}")
-    cs, n_cyc = cfg.code_samples, cfg.n_cyc
-    n_ch, dev = s.shape[0], chunk.device
-    t = chunk.shape[0]
-    if step < 0 or (step + 1) * k > t:
-        raise ValueError(f"wipeoff_vpu kernel: step {step} x K={k} outside "
-                         f"a chunk of {t} blocks")
-    _vpu_limits(cfg, n_ch, chunk.data_ptr())
-    _check(chunk, "chunk", torch.float32, (t, 2, n_cyc, cs), dev)
-    _check(codes, "codes", torch.float32, (n_ch, cs), dev)
-    for name, v in (("s", s), ("snp", snp), ("phase", phase)):
-        _check(v, name, torch.float32, (n_ch,), dev)
-    _check(wipe, "wipe", torch.int32, (n_ch, k), dev)
-    center = torch.empty((k, n_ch, cs), dtype=torch.complex64, device=dev)
-    head = torch.empty((n_ch, k), dtype=torch.complex64, device=dev)
-    seg = torch.empty((n_ch, k, n_cyc), dtype=torch.complex64, device=dev)
-    args = _build.WipeoffVpuArgs(
-        chunk.data_ptr(), codes.data_ptr(), s.data_ptr(), snp.data_ptr(),
-        phase.data_ptr(), wipe.data_ptr(), center.data_ptr(),
-        head.data_ptr(), seg.data_ptr(), n_ch, k, step, n_cyc, cs,
-        cfg.corr_avg)
-    _build.launch("wipeoff_vpu", args, dev)
+    per_stream = _stream_chunks(chunk, 4, n_streams, "wipeoff_vpu kernel")
+    _vpu_limits(cfg, s.shape[0] // n_streams, chunk.data_ptr())
+    out = _launch("wipeoff_vpu", _build.WipeoffVpuArgs, cfg, k, s, snp,
+                  phase, wipe, chunk, step, codes, n_streams, per_stream,
+                  (torch.float32, (2, cfg.n_cyc, cfg.code_samples)))
     mix_wipeoff_vpu.launches += 1
-    return center, head, seg
+    return out
 
 
 mix_wipeoff_vpu.launches = 0

@@ -20,6 +20,14 @@ The compact transport of the device-resident receiver (pack_outs_compact
 and its host inverses) and the window program (track_window_impl) are
 ported too; packing runs on the device, unpacking on the host in numpy.
 
+The serving path (runtime/serving.py) tracks S streams at once
+(track_streams_impl, track_streams_window_impl).  Where the JAX module
+vmaps the chunk program over a stream axis, here the streams' channels
+run as one flattened S*C channel axis through the same K-step loop: the
+wipeoff kernels take the stream count as their grid's z extent and the
+cheap kernel takes S*C channels, so a K-step is one launch of each
+whatever S is.
+
 Differences from the JAX module, none of which changes a result:
   * integer state stays integer (ms_time, counters, int8 signs and the
     correlation ring); there is no f32 packing and no ms_time rebase;
@@ -467,12 +475,12 @@ def track_chunk_impl(cfg: ReceiverConfig, states: ChannelState,
 def to_grouped_planar(cfg: ReceiverConfig, blocks: torch.Tensor
                       ) -> torch.Tensor:
     """A chunk in any IQ layout -> contiguous grouped planar
-    f32[T, 2, n_cyc, cs] (returned as is if it already is one)."""
+    f32[..., T, 2, n_cyc, cs] (returned as is if it already is one)."""
     if dsp.is_grouped_iq(cfg, blocks):
         return blocks.to(torch.float32).contiguous()
     x = dsp.as_complex_input(blocks)
-    return torch.stack([x.real, x.imag], dim=1).reshape(
-        x.shape[0], 2, cfg.n_cyc, cfg.code_samples).contiguous()
+    return torch.stack([x.real, x.imag], dim=-2).reshape(
+        tuple(x.shape[:-1]) + (2, cfg.n_cyc, cfg.code_samples)).contiguous()
 
 
 def predict_wipe_delays(cfg: ReceiverConfig, k: int, freq: torch.Tensor,
@@ -500,14 +508,18 @@ def _resolve_delays(delay0: torch.Tensor, delay_k: torch.Tensor
 
 def heavy_stage(cfg: ReceiverConfig, k: int, states: ChannelState,
                 chunk: torch.Tensor, step: int, codes: torch.Tensor,
-                code_ffts: torch.Tensor, corr_spec=None) -> HeavyOut:
+                code_ffts: torch.Tensor, corr_spec=None,
+                n_streams: int = 1) -> HeavyOut:
     """Feedback-free stages of K-block step `step` of `chunk` for all
     channels: frozen-NCO mixing and code wipeoff (hopper_wipeoff), then
     the center-period correlation and peak metrics on torch.fft.
 
     chunk is complex64[T, ngps] when cfg.use_mxu_wipeoff (kernel
     mix_wipeoff) and grouped planar f32[T, 2, n_cyc, cs] otherwise
-    (kernel mix_wipeoff_vpu)."""
+    (kernel mix_wipeoff_vpu).  With n_streams > 1 the channel axis holds
+    the channels of that many streams, stream after stream, and chunk is
+    read by all of them or, with a leading stream axis, is one chunk a
+    stream (the layouts hopper_wipeoff takes)."""
     freq, phase, delay0 = states.freq, states.phase, states.delay
     s = TWO_PI * freq / cfg.sample_rate
     snp = torch.remainder(s * cfg.ngps, TWO_PI)
@@ -515,7 +527,7 @@ def heavy_stage(cfg: ReceiverConfig, k: int, states: ChannelState,
     wipeoff = (hopper_wipeoff.mix_wipeoff if cfg.use_mxu_wipeoff
                else hopper_wipeoff.mix_wipeoff_vpu)
     center, head_k, seg_sums_k = wipeoff(cfg, k, s, snp, phase, wipe, chunk,
-                                         step, codes)
+                                         step, codes, n_streams)
     spec = corr.prep_spec(code_ffts) if corr_spec is None else corr_spec
     delay_k, code_phase_k, norm_max_k = corr.corr_peaks(
         center, spec, cfg.corr_min)                       # [k, C]
@@ -614,6 +626,18 @@ def track_chunk_batched_impl(cfg: ReceiverConfig, states: ChannelState,
         st2, o2 = track_chunk_impl(cfg, st1, blocks[tm:], stream_no0 + tm,
                                    codes, code_ffts)
         return st2, ChannelOut(*[torch.cat([a, b]) for a, b in zip(o1, o2)])
+    return _fused_steps(cfg, states, blocks, t, stream_no0, codes,
+                        code_ffts)
+
+
+def _fused_steps(cfg: ReceiverConfig, states: ChannelState,
+                 blocks: torch.Tensor, t: int, stream_no0: int,
+                 codes: torch.Tensor, code_ffts: torch.Tensor,
+                 n_streams: int = 1) -> tuple[ChannelState, ChannelOut]:
+    """The K-step loop over a chunk of t blocks, t a multiple of K: per
+    step one wipeoff launch and one cheap launch for every channel (of
+    n_streams streams; see heavy_stage).  Outputs [T, C, ...]."""
+    k = cfg.blocks_per_step
     # the wipeoff kernel's layout, converted at most once per chunk
     if cfg.use_mxu_wipeoff:
         blocks = dsp.as_complex_input(blocks).contiguous()
@@ -623,7 +647,7 @@ def track_chunk_batched_impl(cfg: ReceiverConfig, states: ChannelState,
     outs = []
     for step in range(t // k):
         heavy = heavy_stage(cfg, k, states, blocks, step, codes, code_ffts,
-                            corr_spec=spec)
+                            corr_spec=spec, n_streams=n_streams)
         states, out = channel_step_k(cfg, k, states, heavy,
                                      stream_no0 + k * step)
         outs.append(out)
@@ -704,8 +728,14 @@ def pack_outs_compact(outs: ChannelOut, cap: int,
     Edge entries are (flat_pos, ms - base, local) sorted by flat_pos =
     block*(n_cyc+1)+slot, -1 past the valid count; base is the
     channel's first edge ms.  The JAX module's lax.sort is a stable
-    torch.sort on the masked position key here."""
-    t, c, sl = outs.edge_valid.shape
+    torch.sort on the masked position key here.
+
+    Leading axes before [T, C, ...] (the stream axis of the serving
+    path, [S, T, C, ...]) are kept: the result is [..., L], each row the
+    packing of its own chunk, as the JAX serving path's vmap of this
+    function (serving.py _pack_streams) gives."""
+    lead = tuple(outs.edge_valid.shape[:-3])
+    t, c, sl = outs.edge_valid.shape[-3:]
     d = t * sl
     cap = min(cap, d)
     f32 = torch.float32
@@ -715,30 +745,34 @@ def pack_outs_compact(outs: ChannelOut, cap: int,
     cols = [outs.code_phase.to(f32), aux]
     if with_freq:
         cols.append(outs.freq.to(f32))
-    blocky = torch.stack(cols, dim=-1)                   # [T, C, 2 or 3]
-    last = torch.stack([getattr(outs, n)[-1].to(f32)
-                        for n in _LAST_FIELDS], dim=-1)        # [C, 7]
+    blocky = torch.stack(cols, dim=-1)              # [..., T, C, 2 or 3]
+    last = torch.stack([getattr(outs, n)[..., -1, :].to(f32)
+                        for n in _LAST_FIELDS], dim=-1)   # [..., C, 7]
 
-    valid = outs.edge_valid.transpose(0, 1).reshape(c, d)
-    ms = outs.edge_ms.transpose(0, 1).reshape(c, d).to(torch.int32)
-    loc = outs.edge_local.transpose(0, 1).reshape(c, d).to(torch.int32)
-    pos = torch.arange(d, dtype=torch.int32, device=dev).expand(c, d)
+    def by_channel(x):                  # [..., T, C, sl] -> [..., C, T*sl]
+        return x.transpose(-3, -2).reshape(lead + (c, d))
+
+    valid = by_channel(outs.edge_valid)
+    ms = by_channel(outs.edge_ms).to(torch.int32)
+    loc = by_channel(outs.edge_local).to(torch.int32)
+    pos = torch.arange(d, dtype=torch.int32, device=dev).expand(lead + (c, d))
     key = torch.where(valid, pos, d)
     skey, order = torch.sort(key, dim=-1, stable=True)
-    skey = skey[:, :cap]
-    sms = torch.gather(ms, 1, order[:, :cap])
-    sloc = torch.gather(loc, 1, order[:, :cap])
+    skey = skey[..., :cap]
+    sms = torch.gather(ms, -1, order[..., :cap])
+    sloc = torch.gather(loc, -1, order[..., :cap])
     ok = skey < d
-    base = sms[:, 0] * ok[:, 0].to(torch.int32)                # [C]
+    base = sms[..., 0] * ok[..., 0].to(torch.int32)            # [..., C]
     edges = torch.stack([
         torch.where(ok, skey, -1).to(f32),
-        torch.where(ok, sms - base[:, None], 0).to(f32),
-        torch.where(ok, sloc, 0).to(f32)], dim=-1)             # [C, cap, 3]
-    nv = valid.to(f32).sum(dim=-1)                             # [C]
-    return torch.cat([blocky.reshape(-1), last.reshape(-1),
+        torch.where(ok, sms - base[..., None], 0).to(f32),
+        torch.where(ok, sloc, 0).to(f32)], dim=-1)        # [..., C, cap, 3]
+    nv = valid.to(f32).sum(dim=-1)                             # [..., C]
+    return torch.cat([blocky.reshape(lead + (-1,)),
+                      last.reshape(lead + (-1,)),
                       (base // _EDGE_MS_SPLIT).to(f32),
                       (base % _EDGE_MS_SPLIT).to(f32),
-                      edges.reshape(-1), nv])
+                      edges.reshape(lead + (-1,)), nv], dim=-1)
 
 
 def unpack_outs_compact(buf: np.ndarray, t: int, c: int, sl: int,
@@ -865,6 +899,89 @@ def track_window_impl(cfg: ReceiverConfig, states: ChannelState,
     return states, torch.stack(rows)
 
 
+def _flat_streams(x: torch.Tensor) -> torch.Tensor:
+    """[S, C, ...] -> [S*C, ...], a view."""
+    return x.reshape((-1,) + tuple(x.shape[2:]))
+
+
+def track_streams_impl(cfg: ReceiverConfig, states: ChannelState,
+                       blocks: torch.Tensor, stream_no0: int,
+                       codes: torch.Tensor, code_ffts: torch.Tensor,
+                       shared: bool = False
+                       ) -> tuple[ChannelState, ChannelOut]:
+    """Track S IQ streams, each with its own channel set, as one
+    stream-stacked chunk (the serving path, runtime/serving.py).
+
+    states: ChannelState with leaves [S, C, ...]; codes, code_ffts
+    [S, C, cs]; blocks: one chunk a stream, [S, T, *iq], or with
+    shared=True one chunk every stream reads, [T, *iq]; stream_no0: the
+    stream number of the chunk's first block, one for all streams.
+    Semantics per stream are those of track_chunk_batched_impl.  The
+    JAX module vmaps that over the streams; here the channels of all
+    streams run as one flattened S*C channel axis, so each K-step is one
+    wipeoff launch (grid z = S) and one cheap launch (S*C channels)
+    whatever S is.  A tail shorter than K runs the K=1 path stream by
+    stream.  Returns (states [S, C, ...], ChannelOut [S, T, C, ...])."""
+    if cfg.cw_excision > 0:
+        raise NotImplementedError(
+            "cw_excision needs the front end, not yet ported")
+    s_n, c = states.prn.shape[:2]
+    flat = ChannelState(*(_flat_streams(x) for x in states))
+    codes, code_ffts = _flat_streams(codes), _flat_streams(code_ffts)
+    t = blocks.shape[0 if shared else 1]
+    k = cfg.blocks_per_step
+    tm = t - t % k if k > 1 else 0
+    parts = []
+    if tm:
+        flat, out = _fused_steps(
+            cfg, flat, blocks[:tm] if shared else blocks[:, :tm], tm,
+            stream_no0, codes, code_ffts, n_streams=s_n)
+        parts.append(out)                                 # [tm, S*C, ...]
+    if tm < t:
+        new, outs = [], []
+        for z in range(s_n):
+            ch = slice(z * c, (z + 1) * c)
+            st, out = track_chunk_impl(
+                cfg, ChannelState(*(x[ch] for x in flat)),
+                blocks[tm:] if shared else blocks[z, tm:], stream_no0 + tm,
+                codes[ch], code_ffts[ch])
+            new.append(st)
+            outs.append(out)
+        flat = ChannelState(*(torch.cat(f) for f in zip(*new)))
+        parts.append(ChannelOut(*(torch.cat(f, dim=1) for f in zip(*outs))))
+    out = parts[0] if len(parts) == 1 else ChannelOut(
+        *(torch.cat(f) for f in zip(*parts)))
+    states = ChannelState(*(x.reshape((s_n, c) + tuple(x.shape[1:]))
+                            for x in flat))
+    return states, ChannelOut(*(
+        x.reshape((t, s_n, c) + tuple(x.shape[2:])).transpose(0, 1)
+        for x in out))
+
+
+def track_streams_window_impl(cfg: ReceiverConfig, states: ChannelState,
+                              blocks: torch.Tensor, stream_no0: int,
+                              codes: torch.Tensor, code_ffts: torch.Tensor,
+                              cap: int, with_freq: bool = False,
+                              shared: bool = True
+                              ) -> tuple[ChannelState, torch.Tensor]:
+    """Track + pack a download window of w chunks for S streams.
+
+    shared=True (serving replicas of one capture): blocks [w, t, *iq],
+    read by every stream; shared=False (independent front ends): blocks
+    [w, S, t, *iq].  Returns (states, packed f32[w, S, L]), row [i, s]
+    pack_outs_compact of stream s's chunk i tracked at stream_no0 + i*t:
+    the layout of the JAX module's track_streams_window.  A Python loop
+    enqueues the chunks; nothing waits for the device."""
+    t = blocks.shape[1 if shared else 2]
+    rows = []
+    for i in range(blocks.shape[0]):
+        states, outs = track_streams_impl(cfg, states, blocks[i],
+                                          stream_no0 + i * t, codes,
+                                          code_ffts, shared)
+        rows.append(pack_outs_compact(outs, cap, with_freq))
+    return states, torch.stack(rows)
+
+
 # pack_states' key layout (gps_sdr_tpu/ops/tracking.py): complex leaves
 # split into __re/__im, the long counters into __hi/__lo of base 4096
 _STATE_SPLIT = {"ms_time", "prev_stream"}
@@ -873,7 +990,9 @@ _SPLIT_BASE = 4096
 
 def states_from_numpy(tree: dict, device="cuda") -> ChannelState:
     """ChannelState on `device` from a dict of f32 arrays in the JAX
-    pack_states layout (so one numpy state feeds both packages)."""
+    pack_states layout (so one numpy state feeds both packages).  The
+    arrays may carry a leading stream axis ([S, C, ...]: a serving
+    path's stacked state); it is kept."""
     dev = resolve_device(device)
     fields = {}
     for name, dt in _STATE_DTYPES.items():
@@ -896,7 +1015,7 @@ def states_from_numpy(tree: dict, device="cuda") -> ChannelState:
 
 def states_to_numpy(states: ChannelState) -> dict:
     """Inverse of states_from_numpy: dict of f32 numpy arrays in the JAX
-    pack_states layout."""
+    pack_states layout, with whatever leading axes the leaves have."""
     out = {}
     for name, v in states._asdict().items():
         v = v.cpu()

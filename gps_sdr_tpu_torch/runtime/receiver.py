@@ -119,20 +119,28 @@ class Receiver:
         self._codes_dev = torch.as_tensor(self._codes, device=self.device)
         self._ffts_dev = torch.as_tensor(self._ffts, device=self.device)
 
-    def _serve_sweep_all(self, block: np.ndarray) -> None:
+    def _serve_sweep_all(self, block: np.ndarray,
+                         found: list | None = None) -> None:
         """Cold start / global re-sweep: one full-grid acquisition and the
         channel-set update.  An armed warm hint narrows the first sweep;
-        if it finds too few satellites the full grid runs."""
+        if it finds too few satellites the full grid runs.  `found`
+        skips the acquisition and takes another receiver's result: the
+        serving path's replicas of one capture see the same blocks, so
+        StreamServer runs the grid once and hands its result on."""
         hints, self.warm_hints = self.warm_hints, None
-        self.found_sats = []
-        if hints is not None:
-            self.found_sats = acquire_all(
-                self.cfg, block, self._ffts_tab, prns=hints[0],
-                dopplers=hints[1], device=self.device)
-            self.status.warm_sweeps += 1
-        if len(self.found_sats) < self.cfg.min_sat:
-            self.found_sats = acquire_all(self.cfg, block, self._ffts_tab,
-                                          device=self.device)
+        if found is not None:
+            self.found_sats = list(found)
+        else:
+            self.found_sats = []
+            if hints is not None:
+                self.found_sats = acquire_all(
+                    self.cfg, block, self._ffts_tab, prns=hints[0],
+                    dopplers=hints[1], device=self.device)
+                self.status.warm_sweeps += 1
+            if len(self.found_sats) < self.cfg.min_sat:
+                self.found_sats = acquire_all(self.cfg, block,
+                                              self._ffts_tab,
+                                              device=self.device)
         del_set, new_set = select_sats(self.slots.active, self.found_sats,
                                        self.corr_quality, self.cfg.max_sat)
         for prn in del_set:
@@ -529,7 +537,10 @@ class Receiver:
 
 class _DeviceChunk:
     """Adapter: lets the consume path treat a device chunk as the chunk
-    (the sweep service reads its first or last block on the host)."""
+    (the sweep service reads its first or last block on the host).  A
+    chunk of a fused window is a view, win[i], or win[i, s] for stream s
+    of a serving window of independent front ends: nothing is copied
+    unless a sweep reads one of its blocks."""
 
     def __init__(self, blocks_dev: torch.Tensor):
         self.blocks_dev = blocks_dev

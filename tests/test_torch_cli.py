@@ -1,5 +1,7 @@
 """The port's command line: `replay` through the port's Session, and
-clear errors for what is not ported yet (never a route to JAX)."""
+clear errors for what is not ported yet (never a route to JAX).  `serve`
+and --save-state/--resume-state are tested in
+tests/test_torch_checkpoint.py."""
 
 import numpy as np
 import pytest
@@ -36,15 +38,15 @@ def test_replay_runs_the_port_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["serve", "synth"],
+    ["synth", "--role", "eval"],
     ["epochs", "x.pickle"],
     ["eval"],
     ["live"],
     ["snapshot", "x.bin", "--ephem-cache", "e.json", "--prior-geo",
      "1,2,3", "--tow", "0"],
     ["replay", "x.bin", "--role", "recv"],
-    ["replay", "x.bin", "--save-state", "s.ckpt"],
-    ["replay", "x.bin", "--resume-state", "s.ckpt"],
+    ["replay", "x.bin", "--ui", "plot"],
+    ["synth", "--ui", "plot"],
     ["replay", "x.bin", "--input-rate", "4096000"],
 ])
 def test_not_ported_is_an_error(argv, capsys):

@@ -7,8 +7,9 @@ NVIDIA GPU and skip without one; run them there with
 (--noconftest: tests/conftest.py configures JAX, which a machine that
 runs only the port need not have.)  The cases and tolerances are
 chip_smoke.py's (check_wipeoff for both wipeoff kernels, with crafted
-wipe delays, check_cheap_chain and check_cheap_case), here
-also at the small test configuration, plus the
+wipe delays, check_cheap_chain and check_cheap_case, and
+check_stream_axis for the serving path's stream axis), here also at
+the small test configuration, plus the
 slice with the kernels against the slice with their plain versions, and
 the slice on the card (run and run_device) against the slice on the
 CPU."""
@@ -130,6 +131,18 @@ def test_cheap_kernel_crafted_case(cuda, cfg, n_ch):
     steps, slot compaction, channels locking inside the step, full
     wrapped rings; the kernel leaves its input state unchanged."""
     chip_smoke.check_cheap_case(cfg, n_ch, 3, cuda)
+
+
+@pytest.mark.parametrize("shared", [True, False],
+                         ids=["shared", "distinct"])
+@pytest.mark.parametrize("n_streams", [1, 3, 8])
+@pytest.mark.parametrize("cfg", [SMALL, PRODUCT], ids=["small", "product"])
+def test_stream_axis_launch_bit_identical(cuda, cfg, n_streams, shared):
+    """chip_smoke phase 7a: one launch of each kernel over n_streams
+    streams of 11 channels (one shared chunk, or one a stream) gives the
+    bits of n_streams single-stream launches, and matches the plain
+    versions with the tolerances of phases 2 and 3."""
+    chip_smoke.check_stream_axis(cfg, n_streams, shared, 5, cuda)
 
 
 SATS = [SatSignal(prn=5, doppler=987.0, code_delay=77.25,
@@ -282,3 +295,62 @@ def test_run_device_card_matches_cpu_on_converged_channels(cuda):
             assert both.size
             np.testing.assert_allclose(gv[np.isin(gs, both)],
                                        wv[np.isin(ws, both)], atol=5e-3)
+
+
+@pytest.mark.parametrize("mxu", [True, False], ids=["wipeoff", "vpu"])
+def test_stream_server_card_matches_cpu(cuda, mxu):
+    """StreamServer on the card (3 replicas of the stream, fused windows,
+    the kernels on the stream axis) against the same server on the CPU
+    (plain versions), all primed on the stream's two satellites: one
+    launch of each kernel per K-step of a stream, no dropped edge, and
+    per stream the epoch count and frame keys exact; on converged
+    channels FRQ atol 1e-2 Hz and code phases atol 5e-3 samples, as
+    test_run_device_card_matches_cpu_on_converged_channels."""
+    from gps_sdr_tpu_torch.ops import hopper_cheap, hopper_wipeoff, tracking
+    from gps_sdr_tpu_torch.runtime.serving import StreamServer
+
+    cfg, blocks = _small_stream()
+    cfg = cfg.replace(use_mxu_wipeoff=mxu, chunks_per_download=2)
+    t, n_chunks = 24, 5
+    planar = tracking.to_grouped_planar(
+        cfg, torch.from_numpy(blocks[:t * n_chunks]))
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        srv = StreamServer(cfg, 3, device=dev)
+        for rx in srv.receivers:
+            rx.sweep_all = False
+            for s in SATS:
+                rx._activate(s.prn, s.doppler, int(s.code_delay))
+            rx._refresh_code_tables()
+        iq = planar.to(dev)
+        kernel = (hopper_wipeoff.mix_wipeoff if mxu
+                  else hopper_wipeoff.mix_wipeoff_vpu)
+        kernel.launches = hopper_cheap.cheap_scan.launches = 0
+        runs[dev.type] = [[] for _ in range(3)]
+        for s, epoch in srv.run(lambda f, n: iq[f:f + n], n_chunks, t):
+            runs[dev.type][s].append(epoch)
+        k_steps = srv.receivers[0].status.k_steps
+        if dev.type == "cuda":
+            assert kernel.launches == hopper_cheap.cheap_scan.launches \
+                == k_steps == n_chunks * t // cfg.blocks_per_step
+        assert all(rx.status.edge_overflows == 0 for rx in srv.receivers)
+    doppler = {s.prn: s.doppler for s in SATS}
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        assert len(got) == len(want) == n_chunks
+        converged = {f["SAT"] for f in want[-1].frames
+                     if abs(f["FRQ"] - doppler[f["SAT"]]) < 10.0}
+        assert converged
+        for ge, we in zip(got, want):
+            assert [sorted(f) for f in ge.frames] == \
+                [sorted(f) for f in we.frames]
+            for gf, wf in zip(ge.frames, we.frames):
+                if wf["SAT"] in converged:
+                    np.testing.assert_allclose(gf["FRQ"], wf["FRQ"],
+                                               atol=1e-2)
+            for prn in converged:
+                gs, gv = cp_arrays(ge.code_phases[prn])
+                ws, wv = cp_arrays(we.code_phases[prn])
+                both = np.intersect1d(gs, ws)
+                assert both.size
+                np.testing.assert_allclose(gv[np.isin(gs, both)],
+                                           wv[np.isin(ws, both)], atol=5e-3)

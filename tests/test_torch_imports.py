@@ -35,8 +35,9 @@ def _all_modules():
 def test_every_module_imports_without_jax():
     mods = _all_modules()
     for m in ("ops.hopper_cheap", "ops.hopper_wipeoff", "runtime.session",
-              "runtime.evaluator", "models.scenario_dev", "models.navmsg",
-              "ops.pvt", "utils.profiling", "cli"):
+              "runtime.evaluator", "runtime.serving", "runtime.checkpoint",
+              "models.scenario_dev", "models.navmsg", "ops.pvt",
+              "utils.profiling", "cli"):
         assert f"gps_sdr_tpu_torch.{m}" in mods
     assert "gps_sdr_tpu_torch.host" not in mods
     code = ("import importlib, sys\n"
