@@ -9,6 +9,9 @@ noted:
   ops/dsp.py, ops/corr.py      DSP primitives and the tracking
                                correlator on torch.fft
   ops/acquisition.py           full-grid cold-start acquisition
+  ops/frontend.py              FIR decimation (conv1d), DDC, CW
+                               excision (torch.fft)
+  ops/snapshot.py              coarse-time snapshot fix from one block
   ops/tracking.py              channel state, K=1 and K-fused tracking,
                                compact transport, window program
   ops/hopper_wipeoff.py        mix + code-wipeoff kernels:
@@ -20,14 +23,17 @@ noted:
                                for pallas_cheap.py _cheap_kernel)
   models/scenario_dev.py       device scenario synthesis
                                (models/scenario_jax.py)
+  models/sim_dev.py            DeviceSynth, device parametric synthesis
+                               (models/sim_jax.py JaxSynth)
   runtime/receiver.py          Receiver: run (host-fed) and run_device
                                (device-resident)
   runtime/session.py           Session
   runtime/serving.py           StreamServer: S receivers on one card,
                                the stream axis in the kernels' grids
   runtime/checkpoint.py        session and server checkpoints
-  cli.py                       `python -m gps_sdr_tpu_torch replay ...`,
-                               `synth`, `serve`
+  cli.py                       `python -m gps_sdr_tpu_torch replay ...`
+                               (with --input-rate), `synth`, `serve`,
+                               `snapshot`
 
 The host half is the port's own copy of the JAX package's JAX-free
 modules, at the same relative paths, with their imports pointed here:
@@ -43,3 +49,4 @@ Importing this package loads neither JAX nor any module of gps_sdr_tpu.
 __version__ = "0.1.0"
 
 from gps_sdr_tpu_torch.config import ReceiverConfig  # noqa: F401
+from gps_sdr_tpu_torch.models.sim_dev import DeviceSynth  # noqa: F401

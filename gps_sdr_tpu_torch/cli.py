@@ -3,15 +3,20 @@
     python -m gps_sdr_tpu_torch replay capture.bin --ui headless --out run1
     python -m gps_sdr_tpu_torch synth --sec 40 --sats 6 --device cuda
     python -m gps_sdr_tpu_torch serve synth --streams 8 --save-state s.pkl
+    python -m gps_sdr_tpu_torch replay hi.bin --input-rate 8192000
+    python -m gps_sdr_tpu_torch snapshot cap.bin --ephem-cache e.json
+        --prior-geo LAT,LON,H --tow TOW
 
-The parser, make_config, make_reporter, block_source, _save_outputs and
-_arm_warm_start are copies of gps_sdr_tpu/cli.py's (without the plot UI
-and the digital front end, which are not ported); this module adds
-`--device` (default cuda) and runs the port's Session, or for `serve`
-its StreamServer, in process.  A resumed run (`--resume-state`) keeps
-the checkpoint's config and continues the source at the block where the
-saved run stopped.  Modes and options the port does not have yet stop
-with an error.
+The parser, make_config, make_reporter, block_source, run_snapshot,
+_save_outputs and _arm_warm_start are copies of gps_sdr_tpu/cli.py's
+(without the plot UI, which is not ported); this module adds `--device`
+(default cuda) and runs the port's Session, or for `serve` its
+StreamServer, in process.  `replay --input-rate` decimates (and with
+--input-if downconverts) a higher-rate capture through the digital
+front end on that device; `snapshot` solves a coarse-time fix from one
+block.  A resumed run (`--resume-state`) keeps the checkpoint's config
+and continues the source at the block where the saved run stopped.
+Modes and options the port does not have yet stop with an error.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import numpy as np
 
 from gps_sdr_tpu_torch.config import ReceiverConfig
 
-PORTED_MODES = ("replay", "synth", "serve")
+PORTED_MODES = ("replay", "synth", "serve", "snapshot")
 
 
 def _parser_of_all_modes() -> argparse.ArgumentParser:
@@ -233,9 +238,17 @@ def make_reporter(args):
 
 def block_source(args, cfg):
     if args.mode == "replay":
-        from gps_sdr_tpu_torch.runtime.sources import replay_blocks
+        from gps_sdr_tpu_torch.runtime.sources import (replay_blocks,
+                                                       replay_decimated)
         max_blocks = (None if args.max_sec is None
                       else int(args.max_sec / cfg.block_sec))
+        if getattr(args, "input_rate", None):
+            return replay_decimated(args.path, cfg, args.input_rate,
+                                    f_if=args.input_if,
+                                    fmt=args.input_format,
+                                    start_stream=args.start_stream,
+                                    max_blocks=max_blocks,
+                                    device=args.device)
         return replay_blocks(args.path, cfg,
                              start_stream=args.start_stream,
                              max_blocks=max_blocks)
@@ -338,12 +351,10 @@ def _not_ported(args) -> str | None:
     """Why `args` asks for something the port does not have, or None."""
     if args.mode not in PORTED_MODES:
         return f"mode {args.mode!r} is not yet ported to PyTorch"
-    if args.mode == "serve":
+    if args.mode in ("serve", "snapshot"):
         return None
     if args.role != "both":
         return f"--role {args.role} is not yet ported to PyTorch"
-    if getattr(args, "input_rate", None):
-        return "--input-rate (the digital front end) is not yet ported"
     if args.ui == "plot":
         return "--ui plot is not yet ported to PyTorch"
     return None
@@ -411,6 +422,69 @@ def run_in_process(args, cfg) -> int:
               f"(n={n}, sd {np.linalg.norm(dev):.2f} m)")
     else:
         print("no position fix")
+    return 0
+
+
+def run_snapshot(args) -> int:
+    """One-block coarse-time fix from a capture and cached ephemerides
+    (the acquisition on --device)."""
+    from gps_sdr_tpu_torch.config import GPS_C
+    from gps_sdr_tpu_torch.models.pseudorange import EPHEM_KEYS
+    from gps_sdr_tpu_torch.ops import cacode
+    from gps_sdr_tpu_torch.ops.snapshot import snapshot_fix
+    from gps_sdr_tpu_torch.runtime.sources import replay_blocks
+    from gps_sdr_tpu_torch.utils.geodesy import ecef_to_geo, geo_to_ecef
+    from gps_sdr_tpu_torch.utils.io import load_ephemerides
+
+    cfg = ReceiverConfig(n_cyc=args.n_cyc)
+    ephs = load_ephemerides(args.ephem_cache)
+    # a normal cache only holds ephem_ok entries, but a hand-edited or
+    # third-party file may carry partial dicts: require the full key
+    # set _stack_ephs needs and report what was skipped
+    complete = {prn: e for prn, e in ephs.items()
+                if isinstance(e, dict) and all(k in e for k in EPHEM_KEYS)}
+    skipped = sorted(set(ephs) - set(complete))
+    if skipped:
+        print(f"snapshot: skipping PRNs with incomplete ephemeris: "
+              f"{skipped}", file=sys.stderr)
+    ephs = complete
+    if not ephs:
+        print("error: ephemeris cache empty, expired, or not decoded",
+              file=sys.stderr)
+        return 2
+    lat, lon, h = (float(v) for v in args.prior_geo.split(","))
+    prior = np.asarray(geo_to_ecef(lat, lon, h), np.float64)
+    block = None
+    for block in replay_blocks(args.path, cfg,
+                               start_stream=args.start_stream,
+                               max_blocks=1):
+        break
+    if block is None:
+        print("error: capture shorter than start stream", file=sys.stderr)
+        return 2
+    t_gps = args.tow + args.start_stream * cfg.block_sec
+    res = snapshot_fix(cfg, block, cacode.ca_fft_table(cfg), ephs,
+                       t_gps, prior, height=args.height, device=args.device)
+    if res is None:
+        print("snapshot: not enough acquired satellites with ephemeris")
+        return 1
+    gla, glo, gal = ecef_to_geo(res.rec_pos)
+    # a mis-resolved millisecond integer (prior outside the ~150 km /
+    # ~1 min validity) leaves hundreds of meters of post-fit residual:
+    # flag the fix rather than print it as trustworthy
+    suspect = res.residual_m > 300.0 or not res.converged
+    if suspect:
+        print("snapshot: WARNING - fix is suspect "
+              f"(residual {res.residual_m:.0f} m, converged="
+              f"{res.converged}); check the position/time prior",
+              file=sys.stderr)
+    print(f"snapshot fix: {gla:.6f} deg, {glo:.6f} deg, {gal:.1f} m "
+          f"(n_sat={res.n_sat}, resid {res.residual_m:.1f} m)")
+    print(f"  ecef: {res.rec_pos[0]:.1f} {res.rec_pos[1]:.1f} "
+          f"{res.rec_pos[2]:.1f} m")
+    print(f"  corrected tow: {res.t_gps:.4f} s "
+          f"(coarse-time error {res.dt_s:+.4f} s, "
+          f"clock bias {res.clock_bias_m / GPS_C * 1e3:+.4f} ms)")
     return 0
 
 
@@ -546,6 +620,8 @@ def main(argv=None) -> int:
         return 2
     if args.mode == "serve":
         return run_serve(args)
+    if args.mode == "snapshot":
+        return run_snapshot(args)
     return run_in_process(args, make_config(args))
 
 

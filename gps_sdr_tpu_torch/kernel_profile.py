@@ -29,7 +29,15 @@ torch.profiler (CUPTI), on one NVIDIA GPU.
      launch counts, then profiled whole: the kernel bodies per K-step
      (one launch of each serves all 8 streams), the device's busy share
      of the wall, the launches per K-step of a stream, the server's
-     stage totals and the device time by item.
+     stage totals and the device time by item;
+  4. the front-end slices of chip_smoke.py phase 8, as in 2:
+     frontend_slice (8b: the scenario synthesized at 8.192 MS/s on the
+     card, downloaded a chunk at a time, decimated by the front end's
+     FIR on the card, then Session.run_source) and cw_slice (8c:
+     tests/test_multipath.py's CW scenario through
+     Session.run_device_source with cw_excision=12, then without);
+     each slice also sums the device time of the cuFFT and the
+     convolution kernels.
 Prints one JSON object (also written to PATH with --out).  Fails without
 a GPU.
 """
@@ -79,6 +87,82 @@ def synth_iq(scn, n_blocks: int, step: int, workers: int = 8):
             lambda f: synth_scenario_blocks(scn, f, min(step, n_blocks - f),
                                             noise_std=NOISE), firsts))
     return np.concatenate(parts)
+
+
+HI_FACTOR = 4                       # 8.192 MS/s captures, decimated by 4
+CW_SEC, CW_SATS, CW_SEED, CW_NOISE = 36.0, 8, 2, 1.0
+CW_TONE = (1500.0, 10.0, 0.4)       # Hz, amplitude, phase (+40 dB J/S)
+
+
+def hi_rate_synth(cfg, dev, sec: float = 40.0):
+    """(scenario, synth): the synthetic_fix default scenario synthesized
+    on the card at HI_FACTOR x the rate (code_samples 8192, 8.192 MS/s),
+    as an Airspy-class capture of it would hold it."""
+    from gps_sdr_tpu_torch.models.scenario import make_scenario
+    from gps_sdr_tpu_torch.models.scenario_dev import DeviceScenarioSynth
+
+    hi = cfg.replace(code_samples=HI_FACTOR * cfg.code_samples)
+    scn = make_scenario(hi, n_sats=N_SATS, seed=SEED, duration_sec=sec + 12.0)
+    return scn, DeviceScenarioSynth(scn, noise_std=NOISE,
+                                    knot_interp_step=0.1, device=dev)
+
+
+def decimated_blocks(synth, cfg, n_blocks: int, dev, step: int = 16,
+                     timer: dict | None = None):
+    """The first n_blocks 2.048 MS/s blocks of a hi-rate synth, as
+    `replay --input-rate` makes them: the capture downloaded `step` of its
+    blocks at a time, then ops/frontend.py frontend_blocks (the FIR on
+    `dev`).  timer["synth_s"] accumulates the synthesis and download."""
+    from gps_sdr_tpu_torch.ops.frontend import frontend_blocks
+
+    def raw():
+        for first in range(0, n_blocks, step):
+            t0 = time.perf_counter()
+            x = synth.chunk(first, min(step, n_blocks - first))
+            x = x.reshape(-1).cpu().numpy()
+            if timer is not None:
+                timer["synth_s"] = timer.get("synth_s", 0.0) + (
+                    time.perf_counter() - t0)
+            yield x
+
+    return frontend_blocks(raw(), cfg, HI_FACTOR, device=dev)
+
+
+def cw_scenario(cfg, sec: float = CW_SEC):
+    """tests/test_multipath.py's CW scenario: 8 satellites (seed 2), each
+    with a specular ray (0.3-0.7 chips, half amplitude, seeded phase),
+    and a +40 dB J/S tone at 1500 Hz."""
+    import numpy as np
+
+    from gps_sdr_tpu_torch.models.scenario import make_scenario
+
+    scn = make_scenario(cfg, n_sats=CW_SATS, duration_sec=sec + 12.0,
+                        seed=CW_SEED, cw=(CW_TONE,))
+    rng = np.random.default_rng(7)
+    for s in scn.sats:
+        s.multipath = (float(rng.uniform(0.3, 0.7)), 0.5,
+                       float(rng.uniform(0, 2 * np.pi)))
+    return scn
+
+
+def doppler_errors(scn, rx, t_end: float) -> dict:
+    """PRN -> (tracked - true) Doppler, Hz, of each locked channel at
+    t_end seconds into the scenario (test_multipath.py's check)."""
+    import numpy as np
+
+    from gps_sdr_tpu_torch.config import L1_FREQ
+    from gps_sdr_tpu_torch.ops.tracking import summarize_states
+
+    st = summarize_states(rx.cfg, rx.states)
+    out = {}
+    for slot, prn in enumerate(rx.slots.slot_prn):
+        if prn == 0 or not st["locked"][slot]:
+            continue
+        sat = next(s for s in scn.sats if s.prn == prn)
+        tau = scn.sat_states(scn.t_rx0 + np.array([t_end, t_end + 1.0]),
+                             sat)[0]
+        out[prn] = float(st["freq"][slot] + L1_FREQ * (tau[1] - tau[0]))
+    return out
 
 
 def _kernel_inputs(cfg, dev, seed=7):
@@ -235,6 +319,12 @@ def _profile_slice(run, n_warm, n_full, truth) -> dict:
     d2d = sum(n for key, (_, n) in times.items() if "DtoD" in key)
     top = sorted(times.items(), key=lambda kv: -kv[1][0])[:15]
     stat = summary["stat"]
+
+    def family(word):
+        hits = [v for key, v in times.items() if word in key.lower()]
+        return {"us": sum(us for us, _ in hits),
+                "calls": sum(n for _, n in hits)}
+
     return {"wall_s": wall,
             "wall_s_profiled": wall_prof,
             "device_busy_s": total / 1e6,
@@ -244,6 +334,8 @@ def _profile_slice(run, n_warm, n_full, truth) -> dict:
             "k_steps": k_steps,
             "dtod_copies": d2d,
             "dtod_copies_per_k_step": d2d / max(k_steps, 1),
+            "fft_device_us": family("fft"),
+            "conv_device_us": family("conv"),
             "top_device_us": {k: {"us": us, "calls": n}
                               for k, (us, n) in top}}
 
@@ -299,6 +391,68 @@ def profile_device_slice(cfg, dev, sec: float = 40.0) -> dict:
     res = _profile_slice(run, cfg.chunks_per_download + 1, n_chunks,
                          scn.rec_ecef)
     return {"signal_s": n_chunks * cfg.no_sec * cfg.block_sec, **res}
+
+
+def profile_frontend_slice(cfg, dev, sec: float = 40.0) -> dict:
+    """The decimated replay slice (chip_smoke.py phase 8b): the scenario
+    synthesized at 8.192 MS/s on the card, downloaded a chunk at a time,
+    decimated by the front end's FIR on the card, then Session.run_source
+    (kernel 1 and cheap).  The wall holds the synthesis and the FIR."""
+    import torch
+
+    from gps_sdr_tpu_torch.runtime.session import Session
+
+    cfg = cfg.replace(use_mxu_wipeoff=True)
+    scn, synth = hi_rate_synth(cfg, dev, sec)
+    n_blocks = int(round(sec / cfg.block_sec))
+
+    def run(n):
+        session = Session(cfg, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summary = session.run_source(decimated_blocks(synth, cfg, n, dev))
+        torch.cuda.synchronize()
+        return session, summary, time.perf_counter() - t0
+
+    res = _profile_slice(run, 1 + 2 * cfg.no_sec, n_blocks, scn.rec_ecef)
+    return {"signal_s": n_blocks * cfg.block_sec, **res}
+
+
+def profile_cw_slice(cfg, dev, sec: float = CW_SEC) -> dict:
+    """The CW excision slice (chip_smoke.py phase 8c): the CW scenario
+    synthesized on the card, through Session.run_device_source with
+    cw_excision=12 (kernel 2 and cheap on excised grouped planar
+    chunks); then the same without excision ("no_excision"), whose FFT
+    time is the tracking's alone."""
+    import torch
+
+    from gps_sdr_tpu_torch.models.scenario_dev import DeviceScenarioSynth
+    from gps_sdr_tpu_torch.runtime.session import Session
+
+    out = {}
+    for thr in (12.0, 0.0):
+        c = cfg.replace(cw_excision=thr, use_mxu_wipeoff=False)
+        scn = cw_scenario(c, sec)
+        synth = DeviceScenarioSynth(scn, noise_std=CW_NOISE,
+                                    knot_interp_step=0.1, device=dev)
+        n_chunks = int(round(sec / c.block_sec)) // c.no_sec
+
+        def run(n):
+            session = Session(c, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            summary = session.run_device_source(synth.chunk_planar, n)
+            torch.cuda.synchronize()
+            return session, summary, time.perf_counter() - t0
+
+        res = _profile_slice(run, c.chunks_per_download + 1, n_chunks,
+                             scn.rec_ecef)
+        res = {"signal_s": n_chunks * c.no_sec * c.block_sec, **res}
+        if thr:
+            out.update(res)
+        else:
+            out["no_excision"] = res
+    return out
 
 
 def profile_serving_slice(cfg, dev, n_streams: int = 8,
@@ -372,6 +526,8 @@ def profile_serving_slice(cfg, dev, n_streams: int = 8,
             "perf_s": dict(srv.perf),
             "err_m": [float(np.linalg.norm(ev.stat[0] - scn.rec_ecef))
                       if ev.stat is not None else None for ev in evs],
+            "fft_device_us": family("fft"),
+            "conv_device_us": family("conv"),
             "top_device_us": {k: {"us": us, "calls": n}
                               for k, (us, n) in top}}
 
@@ -381,7 +537,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None, help="also write the JSON here")
     ap.add_argument("--only", nargs="+", default=None,
                     choices=("kernels", "replay_slice", "device_slice",
-                             "serving_slice"),
+                             "serving_slice", "frontend_slice", "cw_slice"),
                     help="run only these parts (default: all)")
     args = ap.parse_args(argv)
     import torch
@@ -402,7 +558,9 @@ def main(argv=None) -> int:
     parts = {"kernels": profile_kernels,
              "replay_slice": profile_replay_slice,
              "device_slice": profile_device_slice,
-             "serving_slice": profile_serving_slice}
+             "serving_slice": profile_serving_slice,
+             "frontend_slice": profile_frontend_slice,
+             "cw_slice": profile_cw_slice}
     res = {"card": card}
     for name, fn in parts.items():
         if args.only is None or name in args.only:

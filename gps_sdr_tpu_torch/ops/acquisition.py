@@ -19,6 +19,7 @@ import torch
 from gps_sdr_tpu_torch.config import ReceiverConfig
 from gps_sdr_tpu_torch.device import resolve_device
 from gps_sdr_tpu_torch.ops import dsp
+from gps_sdr_tpu_torch.ops.frontend import excise_cw_block
 
 
 class AcqResult(NamedTuple):
@@ -79,16 +80,16 @@ def acquire_all(cfg: ReceiverConfig, block, code_fft_table: np.ndarray,
     """Acquire `prns` (default: the full search list) on one host block
     and return the found satellites sorted by correlation strength, as
     (norm_max, prn, freq, delay) tuples.  `dopplers` overrides the
-    config's search bins (almanac warm start)."""
-    if cfg.cw_excision > 0:
-        raise NotImplementedError(
-            "cw_excision needs the front end (ops/frontend.py), which the "
-            "PyTorch port does not have yet")
+    config's search bins (almanac warm start).  With cfg.cw_excision > 0
+    the block's narrowband interference is nulled before the grid
+    search, as the tracking chunks' is; acquire_impl does not excise."""
     dev = resolve_device(device)
     prns = list(cfg.prns if prns is None else prns)
     if dopplers is None:
         dopplers = cfg.doppler_bins
     blk = torch.as_tensor(np.asarray(block, np.complex64), device=dev)
+    if cfg.cw_excision > 0:
+        blk = excise_cw_block(blk, cfg.cw_excision)
     ffts = torch.as_tensor(
         np.asarray(code_fft_table[np.asarray(prns)], np.complex64),
         device=dev)

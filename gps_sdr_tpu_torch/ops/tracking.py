@@ -28,6 +28,11 @@ wipeoff kernels take the stream count as their grid's z extent and the
 cheap kernel takes S*C channels, so a K-step is one launch of each
 whatever S is.
 
+With cfg.cw_excision > 0 each chunk entry point nulls the narrowband
+interference of every block first (ops/frontend.py excise_cw_chunk, one
+batched FFT a chunk) and tracks the excised chunk, as the JAX module
+does; the window functions and the receiver inherit it.
+
 Differences from the JAX module, none of which changes a result:
   * integer state stays integer (ms_time, counters, int8 signs and the
     correlation ring); there is no f32 packing and no ms_time rebase;
@@ -46,7 +51,8 @@ import torch
 
 from gps_sdr_tpu_torch.config import ReceiverConfig
 from gps_sdr_tpu_torch.device import resolve_device
-from gps_sdr_tpu_torch.ops import corr, dsp, hopper_cheap, hopper_wipeoff
+from gps_sdr_tpu_torch.ops import (corr, dsp, frontend, hopper_cheap,
+                                   hopper_wipeoff)
 
 TWO_PI = 2.0 * math.pi
 
@@ -450,10 +456,12 @@ def track_chunk_impl(cfg: ReceiverConfig, states: ChannelState,
     """Track all channels over T consecutive blocks, one block per step.
 
     blocks: complex64[T, ngps]; stream_no0: stream number of blocks[0];
-    codes f32[C, cs], code_ffts c64[C, cs].  Outputs are [T, C, ...]."""
+    codes f32[C, cs], code_ffts c64[C, cs].  Outputs are [T, C, ...].
+    With cfg.cw_excision > 0 the chunk is excised first
+    (frontend.excise_cw_chunk)."""
     if cfg.cw_excision > 0:
-        raise NotImplementedError(
-            "cw_excision needs the front end, not yet ported")
+        blocks = frontend.excise_cw_chunk(cfg, blocks)
+        cfg = cfg.replace(cw_excision=0.0)
     blocks = dsp.as_complex_input(blocks)
     outs = []
     for i in range(blocks.shape[0]):
@@ -607,10 +615,12 @@ def track_chunk_batched_impl(cfg: ReceiverConfig, states: ChannelState,
     blocks: complex64[T, ngps] or grouped planar f32[T, 2, n_cyc, cs].
     A chunk whose length is not a multiple of K runs fused steps over
     the divisible prefix and the K=1 path over the tail.  Outputs come
-    back in stream order [T, C, ...]."""
+    back in stream order [T, C, ...].  With cfg.cw_excision > 0 the
+    chunk is excised once, here, and the fused prefix and the tail see
+    the same excised blocks."""
     if cfg.cw_excision > 0:
-        raise NotImplementedError(
-            "cw_excision needs the front end, not yet ported")
+        blocks = frontend.excise_cw_chunk(cfg, blocks)
+        cfg = cfg.replace(cw_excision=0.0)
     k = cfg.blocks_per_step
     if k <= 1:
         return track_chunk_impl(cfg, states, blocks, stream_no0, codes,
@@ -921,10 +931,14 @@ def track_streams_impl(cfg: ReceiverConfig, states: ChannelState,
     streams run as one flattened S*C channel axis, so each K-step is one
     wipeoff launch (grid z = S) and one cheap launch (S*C channels)
     whatever S is.  A tail shorter than K runs the K=1 path stream by
-    stream.  Returns (states [S, C, ...], ChannelOut [S, T, C, ...])."""
+    stream.  Returns (states [S, C, ...], ChannelOut [S, T, C, ...]).
+
+    With cfg.cw_excision > 0 the chunk is excised first: a shared chunk
+    once for all streams (the JAX module excises it once a stream, to
+    the same values), a stacked one as one batched FFT."""
     if cfg.cw_excision > 0:
-        raise NotImplementedError(
-            "cw_excision needs the front end, not yet ported")
+        blocks = frontend.excise_cw_chunk(cfg, blocks)
+        cfg = cfg.replace(cw_excision=0.0)
     s_n, c = states.prn.shape[:2]
     flat = ChannelState(*(_flat_streams(x) for x in states))
     codes, code_ffts = _flat_streams(codes), _flat_streams(code_ffts)

@@ -17,9 +17,11 @@ a pickle of the port's small host-side objects:
 evaluators: a resumed receiver continues mid-stream with locked
 channels, bit framing and pseudorange time references intact, epoch
 for epoch as if it had not stopped.  The format version is the JAX
-package's (2), and the state arrays are laid out as its are; the pickled
-host objects are the port's own, so a checkpoint loads in the package
-that wrote it.
+package's (2), and the state arrays are laid out as its are, but the
+pickled host objects are the port's own.  A checkpoint written by the
+JAX package holds gps_sdr_tpu objects: the loader refuses it, before
+any of that package (or JAX) is imported, with a ValueError that names
+the module.
 """
 
 from __future__ import annotations
@@ -31,6 +33,24 @@ from gps_sdr_tpu_torch.ops.tracking import states_from_numpy, states_to_numpy
 # v2: the Evaluator stores all_pos as _pos_buf/_pos_n and sat_results as
 # a TupleLog; PseudorangeEngine stores cp_hist as hist_snos/hist_cps
 FORMAT_VERSION = 2
+
+# top-level packages whose classes a port checkpoint never holds
+_FOREIGN = frozenset({"gps_sdr_tpu", "jax", "jaxlib"})
+
+
+class _PortUnpickler(pickle.Unpickler):
+    """Unpickles only what does not come from the JAX package or JAX:
+    a class is looked up (and its module imported) only after its top
+    package passed the check, so a refused checkpoint imports nothing."""
+
+    def find_class(self, module, name):
+        # the top package, not a prefix: gps_sdr_tpu_torch is the port's
+        if module.split(".")[0] in _FOREIGN:
+            raise ValueError(
+                f"checkpoint holds {module}.{name}: it was written by the "
+                "JAX package (gps_sdr_tpu), which the PyTorch port does not "
+                "load; resume it with `python -m gps_sdr_tpu`")
+        return super().find_class(module, name)
 
 
 def _receiver_payload(rec) -> dict:
@@ -64,7 +84,7 @@ def _restore_receiver(rec, p: dict) -> None:
 
 def _load(path: str) -> dict:
     with open(path, "rb") as f:
-        p = pickle.load(f)
+        p = _PortUnpickler(f).load()
     if p.get("version") != FORMAT_VERSION:
         raise ValueError(f"unknown checkpoint version {p.get('version')!r} "
                          f"(this package reads {FORMAT_VERSION})")

@@ -8,8 +8,9 @@ with value = 256*Q + I, normalized to complex64 via v/127.5 - (1+1j)
 
 The uint16 -> complex64 unpack is the only byte-crunching on the host
 data path.  This copy of gps_sdr_tpu/runtime/sources.py keeps its numpy
-path only (the native unpack, csrc/ingest.cpp, is not ported) and drops
-replay_decimated, which needs the JAX digital front end.
+path only (the native unpack, csrc/ingest.cpp, is not ported);
+replay_decimated runs the port's digital front end (ops/frontend.py) on
+`device`.
 """
 
 from __future__ import annotations
@@ -55,6 +56,57 @@ def replay_blocks(path: str, cfg: ReceiverConfig,
                 return  # EOF
             yield unpack_iq(words)
             n += 1
+
+
+def replay_decimated(path: str, cfg: ReceiverConfig, input_rate: float,
+                     f_if: float = 0.0, fmt: str = "iq8",
+                     start_stream: int = 0,
+                     max_blocks: int | None = None,
+                     device="cuda") -> Iterator[np.ndarray]:
+    """Replay a HIGHER-RATE capture through the digital front end
+    (ops/frontend.py, on `device`) into standard ngps-sample blocks.
+
+    input_rate must be an integer multiple of cfg.sample_rate; fmt is
+    "iq8" (the reference's packed uint16 IQ) or "real16" (int16 real
+    samples, e.g. a real-IF front end: give f_if).  The capture is read
+    factor * ngps samples at a time.  start_stream/max_blocks apply to
+    the decimated OUTPUT blocks."""
+    from gps_sdr_tpu_torch.ops.frontend import frontend_blocks
+
+    factor = round(input_rate / cfg.sample_rate)
+    if abs(input_rate - factor * cfg.sample_rate) > 1e-6 or factor < 1:
+        raise ValueError(
+            f"input_rate {input_rate} is not an integer multiple of "
+            f"{cfg.sample_rate}")
+    chunk = factor * cfg.ngps
+
+    def raw():
+        with open(path, "rb") as f:
+            while True:
+                if fmt == "iq8":
+                    words = np.fromfile(f, dtype=np.uint16, count=chunk)
+                    if words.size == 0:
+                        return
+                    yield unpack_iq(words)
+                elif fmt == "real16":
+                    raw16 = np.fromfile(f, dtype=np.int16, count=chunk)
+                    if raw16.size == 0:
+                        return
+                    yield raw16.astype(np.float32) / 32768.0
+                else:
+                    raise ValueError(f"unknown capture format {fmt!r}")
+
+    gen = frontend_blocks(raw(), cfg, factor, f_if=f_if, fs_in=input_rate,
+                          device=device)
+    n = 0
+    for blk in gen:
+        if start_stream > 0:
+            start_stream -= 1
+            continue
+        if max_blocks is not None and n >= max_blocks:
+            return
+        yield blk
+        n += 1
 
 
 def record_blocks(path: str, blocks, append: bool = False) -> int:

@@ -234,3 +234,27 @@ def test_crafted_case_matches_jax(ref):
     states = jtrk.unpack_states(ttrk.states_to_numpy(st))
     got, refs = _three_ways(states, heavy, 1)
     _compare(got, refs[ref == "pallas"])
+
+
+def test_cheap_trace_plain_side():
+    """cheap_trace.py, the card-side trace of the kernel's PLL: each line
+    it inserts its writes before is found once in csrc/cheap.cu, and its
+    plain side, recorded from cheap_scan_plain's calls of _pll on
+    replicas 3 Hz apart, gives cheap_scan_plain's results bit for bit
+    (and itself checks the dphi and df_sum it advances)."""
+    import cheap_trace
+    from gps_sdr_tpu_torch.ops import _build
+
+    text = (_build.CSRC / "cheap.cu").read_text()
+    assert [text.count(a) for a, _ in cheap_trace.TRACE_INSERTS] == [1] * 4
+    st, chunk, codes, ffts = chip_smoke.stream_case(CFG, 3, True, 2 * K, 5,
+                                                    "cpu", dopp_step=3.0)
+    heavy = ttrk.heavy_stage(CFG, K, st, chunk, 0, codes, ffts, n_streams=3)
+    _, erased = ttrk._erased(st, 1)
+    args = (CFG, K, heavy.head_k, heavy.seg_sums_k, heavy.delay_k,
+            heavy.wipe_delay, erased)
+    out, tr = cheap_trace.plain_trace(args)
+    want = hopper_cheap.cheap_scan_plain(*args)
+    assert all(chip_smoke._same_bits(a, b) for a, b in zip(out, want))
+    assert tr["df"].shape == (3 * CFG.max_sat, K)
+    assert torch.equal(tr["locked_in"][:, 0], erased.locked.float())

@@ -174,6 +174,42 @@ def test_wrong_version_raises(tmp_path):
         checkpoint.load_server(path, device="cpu")
 
 
+@pytest.mark.parametrize("loader", ["load_session", "load_server"])
+def test_jax_written_checkpoint_refused(tmp_path, loader):
+    """A checkpoint the JAX package wrote holds gps_sdr_tpu objects: the
+    port's loader raises a ValueError naming the JAX package, and in a
+    fresh interpreter neither gps_sdr_tpu nor jax has been imported by
+    the time it has."""
+    import os
+    import subprocess
+    import sys
+
+    from gps_sdr_tpu.runtime.checkpoint import save_session as jax_save
+    from gps_sdr_tpu.runtime.session import Session as JaxSession
+
+    path = str(tmp_path / "jax.pkl")
+    jax_save(JaxSession(_jax(CFG)), path)
+    code = ("import sys\n"
+            "from gps_sdr_tpu_torch.runtime import checkpoint\n"
+            "try:\n"
+            f"    checkpoint.{loader}({path!r}, device='cpu')\n"
+            "except ValueError as e:\n"
+            "    print('REFUSED', e)\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', "
+            "'gps_sdr_tpu'))\n"
+            "print('FOREIGN_MODULES', bad)\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = root
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=root, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "REFUSED checkpoint holds gps_sdr_tpu." in res.stdout, res.stdout
+    assert "written by the JAX package" in res.stdout
+    assert "FOREIGN_MODULES []" in res.stdout, res.stdout
+
+
 SERVE_SEC, SERVE_SATS, SERVE_SEED, SERVE_NOISE = 3.2, 3, 3, 0.5
 
 

@@ -1,7 +1,10 @@
-"""The port's command line: `replay` through the port's Session, and
-clear errors for what is not ported yet (never a route to JAX).  `serve`
-and --save-state/--resume-state are tested in
-tests/test_torch_checkpoint.py."""
+"""The port's command line: `replay` through the port's Session (also of
+a real-IF capture at 4x the rate, through the front end), `snapshot` at
+a later block of a capture, and clear errors for what is not ported yet
+(never a route to JAX).  `serve` and --save-state/--resume-state are
+tested in tests/test_torch_checkpoint.py, `replay --input-rate` of an iq8
+capture in tests/test_torch_frontend.py and the `snapshot` bars in
+tests/test_torch_snapshot.py."""
 
 import numpy as np
 import pytest
@@ -42,13 +45,80 @@ def test_replay_runs_the_port_on_cpu(tmp_path, capsys):
     ["epochs", "x.pickle"],
     ["eval"],
     ["live"],
-    ["snapshot", "x.bin", "--ephem-cache", "e.json", "--prior-geo",
-     "1,2,3", "--tow", "0"],
+    ["synth", "--role", "recv", "--ui", "plot"],
     ["replay", "x.bin", "--role", "recv"],
     ["replay", "x.bin", "--ui", "plot"],
     ["synth", "--ui", "plot"],
-    ["replay", "x.bin", "--input-rate", "4096000"],
+    ["live", "--role", "recv", "--ui", "plot"],
 ])
 def test_not_ported_is_an_error(argv, capsys):
+    """The refusal names the first missing piece: the mode, then --role,
+    then --ui plot."""
     assert cli.main(argv) == 2
-    assert "not yet ported" in capsys.readouterr().err
+    if argv[0] not in cli.PORTED_MODES:
+        want = f"mode {argv[0]!r}"
+    elif "--role" in argv:
+        want = f"--role {argv[argv.index('--role') + 1]}"
+    else:
+        want = "--ui plot"
+    assert f"{want} is not yet ported" in capsys.readouterr().err
+
+
+def test_replay_real_if_input_rate(tmp_path, capsys):
+    """`replay --input-rate 8192000 --input-if F --input-format real16`
+    on the CPU: the DDC and the decimation turn a real-IF capture into
+    2.048 MS/s blocks whose cold sweep finds the satellites."""
+    from gps_sdr_tpu_torch.utils.io import load_epoch_records
+
+    cfg = ReceiverConfig(n_cyc=8)
+    hi_cfg = cfg.replace(code_samples=4 * cfg.code_samples)
+    sats = [SatSignal(prn=5, doppler=1850.0, code_delay=1200.0,
+                      nav_bits=random_bits(64, seed=5)),
+            SatSignal(prn=29, doppler=400.0, code_delay=8188.0,
+                      amplitude=0.9, nav_bits=random_bits(64, seed=29))]
+    hi = synth_stream(hi_cfg, sats, 3, noise_std=0.3, seed=2).reshape(-1)
+    fs_in, f_if = hi_cfg.sample_rate, 2.1e6
+    t = np.arange(hi.size) / fs_in
+    real_if = np.real(0.2 * hi * np.exp(2j * np.pi * f_if * t))
+    path = tmp_path / "if.bin"
+    (real_if * 32767).astype(np.int16).tofile(path)
+    rec = str(tmp_path / "ep.pickle")
+    rc = cli.main(["replay", str(path), "--n-cyc", "8", "--input-rate",
+                   str(fs_in), "--input-if", str(f_if), "--input-format",
+                   "real16", "--device", "cpu", "--ui", "none",
+                   "--record-epochs", rec])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    recs = load_epoch_records(rec)
+    assert len(recs) == 1 and sorted(recs[0][2]) == [5, 29]
+
+
+def test_snapshot_at_a_later_block(tmp_path, capsys):
+    """`snapshot --start-stream 1` fixes from the capture's second block
+    (its tow advanced by one block) within tests/test_snapshot.py's bars."""
+    import re
+
+    from gps_sdr_tpu_torch.models.scenario import make_scenario
+    from gps_sdr_tpu_torch.models.scenario_dev import DeviceScenarioSynth
+    from gps_sdr_tpu_torch.utils.io import save_ephemerides
+
+    cfg = ReceiverConfig()
+    scn = make_scenario(cfg, n_sats=7, duration_sec=4.0, seed=11)
+    iq = DeviceScenarioSynth(scn, noise_std=0.6, seed=7,
+                             device="cpu").chunk(7, 2).numpy()
+    cap = tmp_path / "cap.bin"
+    pack_iq(iq.reshape(-1)).tofile(cap)
+    eph = tmp_path / "eph.json"
+    save_ephemerides(str(eph), {s.prn: s.eph for s in scn.sats})
+    t_rx7 = scn.t_rx0 + 7 * cfg.ngps / cfg.sample_rate
+    lat, lon, h = scn.rec_geo
+    rc = cli.main(["snapshot", str(cap), "--ephem-cache", str(eph),
+                   "--prior-geo", f"{lat - 0.3},{lon + 0.3},{h}",
+                   "--tow", str(t_rx7 + 20.0), "--start-stream", "1",
+                   "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    m = re.search(r"snapshot fix: ([-\d.]+) deg, ([-\d.]+) deg", out)
+    assert m, out
+    assert abs(float(m.group(1)) - lat) < 0.002
+    assert abs(float(m.group(2)) - lon) < 0.003

@@ -8,8 +8,9 @@ NVIDIA GPU and skip without one; run them there with
 runs only the port need not have.)  The cases and tolerances are
 chip_smoke.py's (check_wipeoff for both wipeoff kernels, with crafted
 wipe delays, check_cheap_chain and check_cheap_case, and
-check_stream_axis for the serving path's stream axis), here also at
-the small test configuration, plus the
+check_stream_axis for the serving path's stream axis, also with
+noise-led channels; check_decimation and check_excision for the front
+end), here also at the small test configuration, plus the
 slice with the kernels against the slice with their plain versions, and
 the slice on the card (run and run_device) against the slice on the
 CPU."""
@@ -143,6 +144,37 @@ def test_stream_axis_launch_bit_identical(cuda, cfg, n_streams, shared):
     bits of n_streams single-stream launches, and matches the plain
     versions with the tolerances of phases 2 and 3."""
     chip_smoke.check_stream_axis(cfg, n_streams, shared, 5, cuda)
+
+
+@pytest.mark.parametrize("n_streams", [3, 8])
+@pytest.mark.parametrize("cfg", [SMALL, PRODUCT], ids=["small", "product"])
+def test_stream_axis_noise_led_channels(cuda, cfg, n_streams):
+    """Replicas of one chunk 3 Hz apart: the far streams' channels are
+    led by noise, and the cheap kernel's df ring still matches its plain
+    version (chip_smoke phase 7a's noise-led case)."""
+    chip_smoke.check_stream_axis(cfg, n_streams, True, 5, cuda,
+                                 dopp_step=3.0)
+
+
+@pytest.mark.parametrize("real_if", [False, True], ids=["complex", "real_if"])
+@pytest.mark.parametrize("factor", [4, 8])
+def test_frontend_decimation_on_card(cuda, factor, real_if):
+    """The front end's conv1d decimation on the card (TF32 off) against
+    a float64 numpy reference (atol 2e-6) and against its CPU version
+    (4e-6; chip_smoke phase 8a)."""
+    chip_smoke.check_decimation(factor, real_if, cuda, n_out=8192)
+
+
+@pytest.mark.parametrize("cfg", [SMALL, PRODUCT], ids=["small", "product"])
+def test_excision_on_card_matches_cpu(cuda, cfg):
+    """excise_cw_chunk on the card (cuFFT) against the CPU (pocketfft) on
+    blocks with a 1500 Hz, amplitude-100 tone: the same bins nulled but
+    for at most 2 a block within 1e-5 of the threshold (chip_smoke
+    phase 8a)."""
+    res = chip_smoke.check_excision(cfg.replace(cw_excision=12.0),
+                                    chip_smoke.jammed_blocks(cfg, 4, 5),
+                                    cuda)
+    assert res["bins_nulled"] > 0
 
 
 SATS = [SatSignal(prn=5, doppler=987.0, code_delay=77.25,

@@ -57,12 +57,15 @@ def _setup(n_blocks):
     return states, tree, blocks, codes, ffts
 
 
-def _compare(jst, jo, tst, to):
+def _compare(jst, jo, tst, to, amplitude=True):
+    """JAX vs port outputs and states; `amplitude=False` leaves the
+    amplitudes to the caller."""
     jo, to = jtrk.outs_to_numpy(jo), ttrk.outs_to_numpy(to)
     np.testing.assert_allclose(to.code_phase, jo.code_phase, atol=5e-3)
     np.testing.assert_allclose(to.norm_max, jo.norm_max, rtol=2e-3)
     np.testing.assert_allclose(to.freq, jo.freq, atol=1e-2)
-    np.testing.assert_allclose(to.amplitude, jo.amplitude, rtol=1e-3)
+    if amplitude:
+        np.testing.assert_allclose(to.amplitude, jo.amplitude, rtol=1e-3)
     np.testing.assert_allclose(to.corr_q, jo.corr_q, atol=1e-6)
     np.testing.assert_allclose(to.corr_l, jo.corr_l, atol=1e-6)
     for name in ("delay", "locked", "erased", "sweep_request", "sign0",
