@@ -90,7 +90,28 @@ Phases (any failure raises and the script exits non-zero):
      e. DeviceSynth on the card against its CPU version, noise off, 11
         satellites, one 32-block chunk (within the f32 spacing of the
         code position and the carrier angle, times the summed
-        amplitude), and its ms a chunk.
+        amplitude), and its ms a chunk;
+  9. the wideband slice (the JAX package's 16.384 MS/s multipath mode,
+     cs 16384, n_cyc 8, corr_avg 4):
+     a. both wipeoff kernels past one cluster of column tiles, against
+        their plain versions with phase 2's tolerances: cs 4096, 8192 and
+        16384 at K=8, 8 and 11 channels with the predicted wipe delays
+        and with 0, 1, 127, 128, 2047, 2048 and cs - 1, 32 channels at cs
+        16384; repeated launches bit-identical, and a 2-stream launch
+        (shared and distinct chunks) bit for bit two single launches;
+        wrapper times and bounds at cs 16384, 8 and 11 channels;
+     b. tests/test_multipath.py's single-satellite bias bars through the
+        port's K-fused tracking on the card with kernel 2: clean < 4 m,
+        a half-chip ray in and against phase and a quarter-chip ray
+        < 12 m;
+     c. its ray scenario (8 satellites, seed 2, rays of 0.3-0.7 chips at
+        half amplitude), no tone, 36 s synthesized on the card at 16.384
+        MS/s and run closed loop through Session.run_device_source with
+        kernel 1 and cheap: the scenario's PRNs, >= 4 ephemerides, >= 200
+        fixes, mean fix < 10 m, kernel 1 and cheap once a K-step, kernel 2
+        never; then at 2.048 MS/s with n_cyc 8 at the same C/N0 (the
+        per-sample noise sqrt(8) x smaller), logged against
+        test_multipath's 60 m bar.
 The line before the last holds the kernels' launches, errors, times and
 bounds as JSON; the last line is {"ok": true, "device": {...}}.
 """
@@ -122,13 +143,15 @@ def log(msg: str) -> None:
 
 
 def _channels(cfg, n_ch, seed):
-    """n_ch simulated satellites and a tracking state aligned with them."""
+    """n_ch simulated satellites (distinct PRNs while there are enough)."""
     import numpy as np
     from gps_sdr_tpu_torch.models.simulator import SatSignal, random_bits
 
     rng = np.random.default_rng(seed)
-    prns = rng.choice(np.arange(cfg.prn_min, cfg.prn_max + 1), n_ch,
-                      replace=False)
+    pool = np.arange(cfg.prn_min, cfg.prn_max + 1)
+    # more channels than PRNs (32 against 31): some PRN twice, each copy
+    # at its own Doppler and delay
+    prns = rng.choice(pool, n_ch, replace=n_ch > len(pool))
     return [SatSignal(prn=int(p),
                       doppler=float(rng.uniform(-4500, 4500)),
                       code_delay=float(rng.uniform(0, cfg.code_samples)),
@@ -138,17 +161,27 @@ def _channels(cfg, n_ch, seed):
             for p in prns]
 
 
-def make_case(cfg, n_ch, n_blocks, seed, device):
+def make_case(cfg, n_ch, n_blocks, seed, device, on_card: bool = False):
     """(states, chunk, codes, code_ffts) on `device`: n_ch channels set
     to the Doppler and code delay of n_ch simulated satellites of an
-    n_blocks chunk."""
+    n_blocks chunk (noise 0.5), synthesized on the host
+    (models/simulator.py) or with on_card=True by DeviceSynth on `device`
+    (the same signal model, torch's noise), which the 16.384 MS/s cases
+    take."""
     import numpy as np
     import torch
+    from gps_sdr_tpu_torch.models.sim_dev import DeviceSynth
     from gps_sdr_tpu_torch.models.simulator import synth_stream
     from gps_sdr_tpu_torch.ops import cacode, tracking
 
     sats = _channels(cfg, n_ch, seed)
-    chunk = synth_stream(cfg, sats, n_blocks, noise_std=0.5, seed=seed)
+    if on_card:
+        chunk = DeviceSynth(cfg, sats, noise_std=0.5, seed=seed,
+                            device=device).chunk(0, n_blocks)
+    else:
+        chunk = torch.as_tensor(synth_stream(cfg, sats, n_blocks,
+                                             noise_std=0.5, seed=seed),
+                                device=device)
     st = tracking.init_channel_states(cfg, n_ch, device)
     for i, s in enumerate(sats):
         st = tracking.reset_channel(st, i, s.prn, s.doppler,
@@ -156,8 +189,7 @@ def make_case(cfg, n_ch, n_blocks, seed, device):
                                     cfg)
     codes = np.stack([cacode.ca_table(cfg)[s.prn] for s in sats])
     ffts = np.stack([cacode.ca_fft_table(cfg)[s.prn] for s in sats])
-    return (st, torch.as_tensor(chunk, device=device),
-            torch.as_tensor(codes, device=device),
+    return (st, chunk, torch.as_tensor(codes, device=device),
             torch.as_tensor(ffts, device=device))
 
 
@@ -208,13 +240,15 @@ def wipeoff_bound(cfg, wipe) -> tuple[float, str]:
 
 
 def crafted_wipe(cfg, n_ch):
-    """Wipeoff delays i32[n_ch, K] cycling through 0, 1, 127, 128 and
+    """Wipeoff delays i32[n_ch, K] cycling through 0, 1, 127, 128, (past
+    cs 2048: 2047 and 2048, the edge of the first cluster's span) and
     cs - 1: the head mask and the code roll on both sides of a 128-column
     tile edge and at both ends of the code period."""
     import torch
 
     cs, k = cfg.code_samples, cfg.blocks_per_step
-    vals = torch.tensor([0, 1, 127, 128, cs - 1], dtype=torch.int32)
+    vals = [0, 1, 127, 128] + ([2047, 2048] if cs > 2048 else []) + [cs - 1]
+    vals = torch.tensor(vals, dtype=torch.int32)
     return vals[torch.arange(n_ch * k).reshape(n_ch, k) % len(vals)]
 
 
@@ -589,7 +623,7 @@ def check_cheap_facts(cfg, out, facts) -> None:
 
 
 def stream_case(cfg, n_streams, shared, n_blocks, seed, device,
-                dopp_step: float = 0.5):
+                dopp_step: float = 0.5, on_card: bool = False):
     """(states, chunk, codes, code_ffts) of n_streams streams of
     cfg.max_sat channels, flattened stream after stream ([S*C, ...]).
     Distinct: stream z's channels and chunk are make_case(seed + z)'s,
@@ -598,7 +632,7 @@ def stream_case(cfg, n_streams, shared, n_blocks, seed, device,
     capture do, stream z with its NCO phase 0.5 z rad and its Doppler
     dopp_step z Hz off (so that a stream reading another's parameters
     would show; at 0.5 Hz every channel stays on its signal, at 3 Hz the
-    far streams' channels are led by noise)."""
+    far streams' channels are led by noise).  on_card: make_case's."""
     import math
 
     import torch
@@ -606,14 +640,14 @@ def stream_case(cfg, n_streams, shared, n_blocks, seed, device,
 
     if shared:
         st, chunk, codes, ffts = make_case(cfg, cfg.max_sat, n_blocks, seed,
-                                           device)
+                                           device, on_card)
         cases = [(st._replace(
             phase=torch.remainder(st.phase + 0.5 * z, 2.0 * math.pi),
             freq=st.freq + dopp_step * z), chunk, codes, ffts)
             for z in range(n_streams)]
     else:
-        cases = [make_case(cfg, cfg.max_sat, n_blocks, seed + z, device)
-                 for z in range(n_streams)]
+        cases = [make_case(cfg, cfg.max_sat, n_blocks, seed + z, device,
+                           on_card) for z in range(n_streams)]
     states = tracking.ChannelState(*(torch.cat(f) for f in
                                      zip(*[c[0] for c in cases])))
     chunk = cases[0][1] if shared else torch.stack([c[1] for c in cases])
@@ -1476,6 +1510,260 @@ def run_device_synth(cfg, dev) -> dict:
 
 
 # --------------------------------------------------------------------------
+# the wideband slice (phase 9; the checks of 9a and 9b also used by
+# tests/test_torch_cuda.py)
+
+
+def check_repeat_bits(cfg, states, chunk, step, codes, vpu: bool,
+                      wipe=None, n_calls: int = 3) -> None:
+    """A wipeoff kernel called again on the same inputs gives the same
+    bits: its column groups, tiles and cluster ranks are added in a fixed
+    order, with no float atomics."""
+    import math
+
+    import torch
+    from gps_sdr_tpu_torch.ops import hopper_wipeoff, tracking
+
+    k = cfg.blocks_per_step
+    kernel = (hopper_wipeoff.mix_wipeoff_vpu if vpu
+              else hopper_wipeoff.mix_wipeoff)
+    if vpu:
+        chunk = tracking.to_grouped_planar(cfg, chunk)
+    s = 2.0 * math.pi * states.freq / cfg.sample_rate
+    snp = torch.remainder(s * cfg.ngps, 2.0 * math.pi)
+    if wipe is None:
+        wipe = tracking.predict_wipe_delays(cfg, k, states.freq,
+                                            states.delay)
+    args = (cfg, k, s, snp, states.phase, wipe.to(chunk.device), chunk,
+            step, codes)
+    first = kernel(*args)
+    for _ in range(n_calls):
+        again = kernel(*args)
+        for part, a, b in zip(("center", "head", "seg"), first, again):
+            if not _same_bits(a, b):
+                raise AssertionError(f"{kernel.__name__} {part}: a repeated "
+                                     "launch gave other bits")
+    torch.cuda.synchronize()
+
+
+def run_wideband_kernels(dev) -> dict:
+    """Phase 9a: both wipeoff kernels past one cluster of column tiles,
+    at cs 4096, 8192 and 16384 with n_cyc 8, corr_avg 4, K=8: 8 and 11
+    channels with the predicted and the crafted wipe delays, 32 channels
+    (two channel groups) at cs 16384, each against its plain version with
+    phase 2's tolerances; repeated launches and a 2-stream launch (shared
+    and distinct chunks) bit for bit.  Returns the errors and, at cs
+    16384, the wrapper times and bounds of 8 and 11 channels."""
+    from gps_sdr_tpu_torch import ReceiverConfig
+    from gps_sdr_tpu_torch.kernel_profile import wide_config
+
+    out = {}
+    for factor in (2, 4, 8):
+        cfg = wide_config(ReceiverConfig(), factor)
+        cs, k = cfg.code_samples, cfg.blocks_per_step
+        for n_ch in (8, 11, 32) if factor == 8 else (8, 11):
+            st, chunk, codes, ffts = make_case(cfg, n_ch, 2 * k, 7 + n_ch,
+                                               dev, on_card=True)
+            for name, vpu in (("wipeoff", False), ("wipeoff_vpu", True)):
+                timing = factor == 8 and n_ch != 32
+                r = check_wipeoff(cfg, st, chunk, 1, codes, ffts,
+                                  timing=timing, vpu=vpu)
+                rc = check_wipeoff(cfg, st, chunk, 0, codes, ffts, vpu=vpu,
+                                   wipe=crafted_wipe(cfg, n_ch))
+                check_repeat_bits(cfg, st, chunk, 1, codes, vpu,
+                                  wipe=crafted_wipe(cfg, n_ch))
+                r["crafted_max_abs_err"] = rc["max_abs_err"]
+                out[f"{name}_cs{cs}_ch{n_ch}"] = r
+                log(f"[9a] {name}, cs {cs}, {n_ch} channels: max abs err "
+                    f"{r['max_abs_err']:.3g} (crafted delays "
+                    f"{rc['max_abs_err']:.3g}); repeats bit-identical"
+                    + (f"; wrapper {r['ms']:.4f} ms, plain "
+                       f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} "
+                       f"ms ({r['bound_by']})" if timing else ""))
+    cfg = wide_config(ReceiverConfig())           # cs 16384
+    for shared in (True, False):
+        st, chunk, codes, ffts = stream_case(cfg, 2, shared, 2 * k, 7, dev,
+                                             on_card=True)
+        for vpu in (False, True):
+            check_wipeoff(cfg, st, chunk, 1, codes, ffts, vpu=vpu,
+                          n_streams=2)
+            check_stream_bits(cfg, st, chunk, 1, codes, 2, shared, vpu)
+        log(f"[9a] 2 streams x {cfg.max_sat} channels at cs {cs}, "
+            f"{'shared' if shared else 'distinct'} chunks: both kernels "
+            "within tolerance of their plain versions and bit-identical "
+            "to 2 single-stream launches")
+    return out
+
+
+# tests/test_multipath.py _track_bias: PRN 17 at -1500 Hz, code delay
+# 900.25 samples, 24 blocks at noise 0.5, an optional specular ray
+BIAS_BITS_SEED, BIAS_BLOCKS, BIAS_NOISE = 17, 24, 0.5
+
+
+def track_bias(cfg, delay_chips, rel_amp, rel_phase, dev) -> float:
+    """Mean tracked code-phase error in m of test_multipath's
+    single-satellite case (one satellite and an optional ray delay_chips
+    later at rel_amp and rel_phase), synthesized on `dev` (DeviceSynth,
+    seed 4) and tracked by the port's K-fused tracking there (kernel 2
+    at use_mxu_wipeoff=False), as _track_bias measures it."""
+    import torch
+    from gps_sdr_tpu_torch.models.sim_dev import DeviceSynth
+    from gps_sdr_tpu_torch.models.simulator import SatSignal, random_bits
+    from gps_sdr_tpu_torch.ops import cacode, tracking
+
+    bits = random_bits(128, seed=BIAS_BITS_SEED)
+    direct = SatSignal(prn=17, doppler=-1500.0, code_delay=900.25,
+                       nav_bits=bits)
+    sats = [direct]
+    if rel_amp > 0:
+        sats.append(SatSignal(
+            prn=17, doppler=-1500.0,
+            code_delay=900.25 + delay_chips * cfg.code_samples / 1023.0,
+            amplitude=rel_amp, carrier_phase=rel_phase, nav_bits=bits))
+    chunk = DeviceSynth(cfg, sats, noise_std=BIAS_NOISE, seed=4,
+                        device=dev).chunk_planar(0, BIAS_BLOCKS)
+    st = tracking.init_channel_states(cfg, 1, dev)
+    st = tracking.reset_channel(st, 0, 17, direct.doppler,
+                                int(direct.code_delay), cfg)
+    codes = torch.as_tensor(cacode.ca_table(cfg)[17][None], device=dev)
+    ffts = torch.as_tensor(cacode.ca_fft_table(cfg)[17][None], device=dev)
+    _, outs = tracking.track_chunk_batched_impl(cfg, st, chunk, 1, codes,
+                                                ffts)
+    got = tracking.outs_to_numpy(outs).code_phase[:, 0]
+    return bias_m(cfg, direct, got)
+
+
+def bias_m(cfg, direct, got) -> float:
+    """_track_bias's measure: the mean code-phase error in m past block 5
+    of the blocks with a correlation (which must be > 90% of them)."""
+    import numpy as np
+    from gps_sdr_tpu_torch.config import GPS_C
+
+    cs, fs = cfg.code_samples, cfg.sample_rate
+    true = np.array([(direct.code_delay + direct.delay_rate(cfg)
+                      * ((b * cfg.ngps + cfg.ngps // 2) / fs)) % cs
+                     for b in range(len(got))])
+    ok = got >= 0
+    if not ok.mean() > 0.9:
+        raise AssertionError("correlation lost under multipath")
+    err = ((got[ok] - true[ok] + cs / 2) % cs - cs / 2)[5:]
+    return float(err.mean()) * GPS_C / fs
+
+
+# (delay chips, ray amplitude, ray phase, bar m): test_multipath's 16 MS/s
+# cases and bars
+BIAS_CASES = ((0.0, 0.0, 0.0, 4.0), (0.5, 0.5, 0.0, 12.0),
+              (0.5, 0.5, 3.141592653589793, 12.0), (0.25, 0.5, 0.0, 12.0))
+
+
+def run_bias_phase(dev) -> dict:
+    """Phase 9b: test_multipath's single-satellite bias bars at 16.384
+    MS/s through the port's K-fused tracking on the card, kernel 2
+    (use_mxu_wipeoff=False) and cheap."""
+    from gps_sdr_tpu_torch import ReceiverConfig
+    from gps_sdr_tpu_torch.kernel_profile import wide_config
+
+    cfg = wide_config(ReceiverConfig(use_mxu_wipeoff=False))
+    _reset_launches()
+    out = {}
+    for d, amp, ph, bar in BIAS_CASES:
+        b = track_bias(cfg, d, amp, ph, dev)
+        tag = f"d{d}_ph{ph:.2f}" if amp else "clean"
+        out[tag] = b
+        log(f"[9b] 16.384 MS/s bias, {tag}: {b:+.3f} m (bar |bias| < {bar})")
+        if not abs(b) < bar:
+            raise AssertionError(f"bias {tag} {b:.2f} m outside {bar} m")
+    launches = _read_launches()
+    steps = len(BIAS_CASES) * BIAS_BLOCKS // cfg.blocks_per_step
+    if not (launches["wipeoff_vpu"] == launches["cheap"] == steps
+            and launches["wipeoff"] == 0):
+        raise AssertionError(f"kernel launches {launches} != {steps} "
+                             "K-steps of kernel 2 and cheap")
+    out["launches"] = launches
+    return out
+
+
+def run_wideband_loop(dev, factor: int, sec: float) -> dict:
+    """One closed loop of ray_scenario at factor x 2.048 MS/s (n_cyc 8,
+    corr_avg 4, kernel 1 and cheap) through Session.run_device_source;
+    returns its fixes, mean fix error, launches, wall and realtime
+    factor."""
+    import numpy as np
+    import torch
+    from gps_sdr_tpu_torch import ReceiverConfig
+    from gps_sdr_tpu_torch.kernel_profile import wideband_synth
+    from gps_sdr_tpu_torch.runtime.session import Session
+
+    cfg, scn, synth = wideband_synth(ReceiverConfig(), dev, factor, sec)
+    t = cfg.no_sec
+    n_chunks = int(round(sec / cfg.block_sec)) // t
+    sig = n_chunks * t * cfg.block_sec
+    session = Session(cfg, device=dev)
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    summary = session.run_device_source(synth.chunk_planar, n_chunks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rx = session.receiver
+    stat = summary["stat"]
+    return dict(cfg=cfg, scn=scn, rx=rx, summary=summary,
+                launches=_read_launches(), wall_s=wall, signal_s=sig,
+                rtf=sig / wall, fixes=summary["n_positions"],
+                noise_std=synth.noise_std,
+                want_steps=n_chunks * (t // cfg.blocks_per_step),
+                err_m=(float(np.linalg.norm(stat[0] - scn.rec_ecef))
+                       if stat is not None else float("nan")))
+
+
+def run_wideband_slice(dev, sec: float = 36.0) -> dict:
+    """Phase 9c: test_multipath's ray scenario (no tone) synthesized on
+    the card at 16.384 MS/s and run closed loop through
+    Session.run_device_source with kernel 1 and cheap: the scenario's
+    PRNs, >= 4 ephemerides, >= 200 fixes, mean fix error < 10 m, kernel 1
+    and cheap once a K-step, kernel 2 never.  Then the same scenario at
+    2.048 MS/s, n_cyc 8, corr_avg 4 and the same C/N0 (its per-sample
+    noise sqrt(8) x smaller), logged against test_multipath's 60 m bar."""
+    wide = run_wideband_loop(dev, 8, sec)
+    cfg, rx, summary, launches = (wide["cfg"], wide["rx"], wide["summary"],
+                                  wide["launches"])
+    found = sorted(f[1] for f in rx.found_sats)
+    truth = sorted(s.prn for s in wide["scn"].sats)
+    ephs = sorted(summary["ephemerides"])
+    log(f"[9c] 16.384 MS/s (noise {wide['noise_std']:.4f} a sample): "
+        f"acquired PRNs {found}; ephemerides {ephs}; {wide['fixes']} fixes "
+        f"at mean error {wide['err_m']:.3f} m; wall {wide['wall_s']:.3f} s "
+        f"for {wide['signal_s']:.2f} s = {wide['rtf']:.2f}x realtime; "
+        f"K-steps {wide['want_steps']}, launches {launches}")
+    if found != truth:
+        raise AssertionError(f"acquired PRNs {found} != scenario {truth}")
+    if not (len(ephs) >= 4 and wide["fixes"] >= 200
+            and wide["err_m"] < 10.0):
+        raise AssertionError(f"16.384 MS/s loop: {len(ephs)} ephemerides, "
+                             f"{wide['fixes']} fixes, {wide['err_m']:.2f} m")
+    if not (launches["wipeoff"] == launches["cheap"] == wide["want_steps"]
+            == rx.status.k_steps and launches["wipeoff_vpu"] == 0):
+        raise AssertionError(f"kernel launches {launches} != K-steps "
+                             f"{wide['want_steps']} or wipeoff_vpu launched")
+    if rx.status.edge_overflows:
+        raise AssertionError(f"{rx.status.edge_overflows} bit edges "
+                             "dropped by the compact transport")
+    narrow = run_wideband_loop(dev, 1, sec)
+    log(f"[9c] 2.048 MS/s, same C/N0 (noise {narrow['noise_std']:.4f} a "
+        f"sample): {narrow['fixes']} fixes at mean error "
+        f"{narrow['err_m']:.3f} m ({'within' if narrow['err_m'] < 60.0 else 'outside'}"
+        f" test_multipath's 60 m bar); wall {narrow['wall_s']:.3f} s = "
+        f"{narrow['rtf']:.2f}x realtime; launches {narrow['launches']}")
+    if not narrow["fixes"]:
+        raise AssertionError("2.048 MS/s comparison loop: no fix")
+    keep = ("launches", "wall_s", "signal_s", "rtf", "fixes", "noise_std",
+            "err_m")
+    return {"wide": {n: wide[n] for n in keep},
+            "narrow": {n: narrow[n] for n in keep},
+            "ephemerides": len(ephs), "launches": launches}
+
+
+# --------------------------------------------------------------------------
 
 
 def _kernel_entry(name, source, replaces, launches, res) -> dict:
@@ -1496,7 +1784,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from gps_sdr_tpu_torch import ReceiverConfig
-    from gps_sdr_tpu_torch.ops import _build
+    from gps_sdr_tpu_torch.ops import _build, hopper_wipeoff
 
     # 0. device
     card = subprocess.run(
@@ -1582,6 +1870,13 @@ def main() -> int:
     run_device_synth(cfg, dev)
     log(f"[8] phase 8 took {time.perf_counter() - t8:.1f} s")
 
+    # 9. the wideband slice
+    t9 = time.perf_counter()
+    wk = run_wideband_kernels(dev)
+    bias = run_bias_phase(dev)
+    wb = run_wideband_slice(dev)
+    log(f"[9] phase 9 took {time.perf_counter() - t9:.1f} s")
+
     kernels = [
         _kernel_entry("wipeoff", "wipeoff.cu",
                       "gps_sdr_tpu/ops/pallas_kernels.py:171",
@@ -1600,6 +1895,24 @@ def main() -> int:
         entry["launches_frontend"] = {
             "decimated_replay": fe["launches"][entry["name"]],
             "cw_excision": cw["launches"][entry["name"]]}
+        entry["launches_wideband"] = {
+            "bias_16msps": bias["launches"][entry["name"]],
+            "closed_loop_16msps": wb["launches"][entry["name"]],
+            "closed_loop_2msps": wb["narrow"]["launches"][entry["name"]]}
+    wipe_range = {"code_samples": f"multiple of {hopper_wipeoff.TILE} up to "
+                                  f"{hopper_wipeoff.MAX_CS}",
+                  "n_cyc": list(hopper_wipeoff.N_CYC),
+                  "corr_avg_max": hopper_wipeoff.MAX_CA,
+                  "channels_per_stream_max": hopper_wipeoff.MAX_CH}
+    for entry in kernels[:2]:
+        entry["shapes"] = wipe_range
+        for n_ch in (8, 11):
+            r = wk[f"{entry['name']}_cs16384_ch{n_ch}"]
+            entry[f"cs16384_ch{n_ch}"] = {
+                key: r[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by")}
+    kernels[2]["shapes"] = {"n_cyc": "n_cyc + 1 <= 64 slots (8, 16, 32)",
+                            "channels": "any (S x C in one launch)"}
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -37,7 +37,14 @@ torch.profiler (CUPTI), on one NVIDIA GPU.
      tests/test_multipath.py's CW scenario through
      Session.run_device_source with cw_excision=12, then without);
      each slice also sums the device time of the cuFFT and the
-     convolution kernels.
+     convolution kernels;
+  5. the wideband slice of chip_smoke.py phase 9: wideband_kernels, each
+     kernel's device time a call at cs 16384, n_cyc 8, corr_avg 4, K=8
+     for 8 and 11 channels; wideband_slice (9c: tests/test_multipath.py's
+     ray scenario synthesized on the card at 16.384 MS/s through
+     Session.run_device_source, kernel 1 and cheap), as in 2, with the
+     kernels' bodies a K-step.
+Every slice also sums its hand-written kernels' device time.
 Prints one JSON object (also written to PATH with --out).  Fails without
 a GPU.
 """
@@ -128,21 +135,52 @@ def decimated_blocks(synth, cfg, n_blocks: int, dev, step: int = 16,
     return frontend_blocks(raw(), cfg, HI_FACTOR, device=dev)
 
 
-def cw_scenario(cfg, sec: float = CW_SEC):
-    """tests/test_multipath.py's CW scenario: 8 satellites (seed 2), each
-    with a specular ray (0.3-0.7 chips, half amplitude, seeded phase),
-    and a +40 dB J/S tone at 1500 Hz."""
+def ray_scenario(cfg, sec: float = CW_SEC, cw: tuple = ()):
+    """tests/test_multipath.py's multipath scenario: 8 satellites (seed
+    2), each with a specular ray (0.3-0.7 chips, half amplitude, seeded
+    phase), and the narrowband tones `cw` ((Hz, amplitude, phase) each)."""
     import numpy as np
 
     from gps_sdr_tpu_torch.models.scenario import make_scenario
 
     scn = make_scenario(cfg, n_sats=CW_SATS, duration_sec=sec + 12.0,
-                        seed=CW_SEED, cw=(CW_TONE,))
+                        seed=CW_SEED, cw=cw)
     rng = np.random.default_rng(7)
     for s in scn.sats:
         s.multipath = (float(rng.uniform(0.3, 0.7)), 0.5,
                        float(rng.uniform(0, 2 * np.pi)))
     return scn
+
+
+def cw_scenario(cfg, sec: float = CW_SEC):
+    """ray_scenario with a +40 dB J/S tone at 1500 Hz (CW_TONE)."""
+    return ray_scenario(cfg, sec, (CW_TONE,))
+
+
+# the JAX package's 16.384 MS/s multipath mode (tests/test_multipath.py
+# test_multipath_bias_collapses_at_16msps): 16384-sample code periods,
+# 8 ms blocks, 4 center periods a correlation
+WIDE_FACTOR = 8
+
+
+def wide_config(cfg, factor: int = WIDE_FACTOR):
+    """cfg at factor x 2.048 MS/s with n_cyc 8 and corr_avg 4 (factor 8:
+    the 16.384 MS/s multipath mode; factor 1: the same blocks at the
+    reference rate)."""
+    return cfg.replace(code_samples=2048 * factor, n_cyc=8, corr_avg=4)
+
+
+def wideband_synth(cfg, dev, factor: int = WIDE_FACTOR, sec: float = CW_SEC):
+    """(config, scenario, synth) of ray_scenario at factor x 2.048 MS/s,
+    synthesized on the card at the C/N0 of noise NOISE at 2.048 MS/s: the
+    per-sample noise is NOISE x sqrt(factor), since the same noise density
+    spreads over factor x the band."""
+    from gps_sdr_tpu_torch.models.scenario_dev import DeviceScenarioSynth
+
+    c = wide_config(cfg, factor)
+    scn = ray_scenario(c, sec)
+    return c, scn, DeviceScenarioSynth(scn, noise_std=NOISE * math.sqrt(factor),
+                                       knot_interp_step=0.1, device=dev)
 
 
 def doppler_errors(scn, rx, t_end: float) -> dict:
@@ -165,14 +203,17 @@ def doppler_errors(scn, rx, t_end: float) -> dict:
     return out
 
 
-def _kernel_inputs(cfg, dev, seed=7):
+def _kernel_inputs(cfg, dev, seed=7, n_blocks=None):
+    """Random kernel inputs of cfg.max_sat channels over a chunk of
+    n_blocks blocks (default a whole chunk, cfg.no_sec)."""
     import torch
 
     from gps_sdr_tpu_torch.ops import tracking
 
     g = torch.Generator(device="cpu").manual_seed(seed)
     n_ch, k, cs = cfg.max_sat, cfg.blocks_per_step, cfg.code_samples
-    chunk = torch.randn((cfg.no_sec, 2, cfg.n_cyc, cs), generator=g)
+    chunk = torch.randn((n_blocks or cfg.no_sec, 2, cfg.n_cyc, cs),
+                        generator=g)
     codes = torch.where(torch.rand((n_ch, cs), generator=g) < 0.5, -1.0, 1.0)
     freq = (torch.rand(n_ch, generator=g) - 0.5) * 9000.0
     delay = torch.randint(0, cs, (n_ch,), generator=g, dtype=torch.int32)
@@ -218,13 +259,17 @@ def slice_like_states(cfg, dev, seed=7):
     return tracking.ChannelState(*(v.to(dev) for v in st))
 
 
-def profile_kernels(cfg, dev, reps: int = 50) -> dict:
+def profile_kernels(cfg, dev, reps: int = 50, stream_counts=(3, 8),
+                    n_blocks=None) -> dict:
+    """Each kernel's device time a call at cfg (cfg.max_sat channels),
+    and on the stream axis for each count in stream_counts; the inputs span
+    n_blocks blocks (_kernel_inputs)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from gps_sdr_tpu_torch.ops import hopper_cheap, hopper_wipeoff, tracking
 
-    x = _kernel_inputs(cfg, dev)
+    x = _kernel_inputs(cfg, dev, n_blocks=n_blocks)
     k = cfg.blocks_per_step
     st = tracking.init_channel_states(cfg, cfg.max_sat, dev)
     st = st._replace(active=torch.ones_like(st.active),
@@ -272,7 +317,7 @@ def profile_kernels(cfg, dev, reps: int = 50) -> dict:
              "wipeoff_vpu": ("wipeoff_vpu_kernel",),
              "cheap": ("cheap_kernel",), "cheap_slice": ("cheap_kernel",)}
     # the stream axis, one launch for n streams (slice-like states)
-    for n in (3, 8):
+    for n in stream_counts:
         for name, fn, kernel in (("wipeoff", "mix_wipeoff", "wipeoff_kernel"),
                                  ("wipeoff_vpu", "mix_wipeoff_vpu",
                                   "wipeoff_vpu_kernel"),
@@ -300,6 +345,14 @@ def profile_kernels(cfg, dev, reps: int = 50) -> dict:
     return out
 
 
+def _family(times: dict, word: str) -> dict:
+    """Device us and calls of the device events whose name holds `word`
+    (e.g. "fft": cuFFT's kernels)."""
+    hits = [v for key, v in times.items() if word in key.lower()]
+    return {"us": sum(us for us, _ in hits),
+            "calls": sum(n for _, n in hits)}
+
+
 def _profile_slice(run, n_warm, n_full, truth) -> dict:
     """run(n) -> (session, summary, wall s) over the first n units of a
     slice: a warm-up (the first sweep builds cuFFT plans, the first
@@ -319,12 +372,6 @@ def _profile_slice(run, n_warm, n_full, truth) -> dict:
     d2d = sum(n for key, (_, n) in times.items() if "DtoD" in key)
     top = sorted(times.items(), key=lambda kv: -kv[1][0])[:15]
     stat = summary["stat"]
-
-    def family(word):
-        hits = [v for key, v in times.items() if word in key.lower()]
-        return {"us": sum(us for us, _ in hits),
-                "calls": sum(n for _, n in hits)}
-
     return {"wall_s": wall,
             "wall_s_profiled": wall_prof,
             "device_busy_s": total / 1e6,
@@ -334,8 +381,10 @@ def _profile_slice(run, n_warm, n_full, truth) -> dict:
             "k_steps": k_steps,
             "dtod_copies": d2d,
             "dtod_copies_per_k_step": d2d / max(k_steps, 1),
-            "fft_device_us": family("fft"),
-            "conv_device_us": family("conv"),
+            "fft_device_us": _family(times, "fft"),
+            "conv_device_us": _family(times, "conv"),
+            "kernels_device_us": {name: _family(times, name) for name in (
+                "wipeoff_kernel", "wipeoff_vpu_kernel", "cheap_kernel")},
             "top_device_us": {k: {"us": us, "calls": n}
                               for k, (us, n) in top}}
 
@@ -455,6 +504,46 @@ def profile_cw_slice(cfg, dev, sec: float = CW_SEC) -> dict:
     return out
 
 
+def profile_wideband_kernels(cfg, dev) -> dict:
+    """Each kernel's device time a call at the 16.384 MS/s multipath mode
+    (cs 16384, n_cyc 8, corr_avg 4, K=8) for 8 and 11 channels, one
+    stream, on random inputs of 2 K-steps."""
+    wide = wide_config(cfg)
+    return {f"ch{n}": profile_kernels(
+        wide.replace(max_sat=n), dev, stream_counts=(),
+        n_blocks=2 * wide.blocks_per_step) for n in (8, 11)}
+
+
+def profile_wideband_slice(cfg, dev, sec: float = CW_SEC) -> dict:
+    """The wideband slice (chip_smoke.py phase 9c): ray_scenario
+    synthesized on the card at 16.384 MS/s and run closed loop through
+    Session.run_device_source with kernel 1 and cheap; the kernels'
+    bodies a K-step beside the slice's device time by item."""
+    import torch
+
+    from gps_sdr_tpu_torch.runtime.session import Session
+
+    c, scn, synth = wideband_synth(cfg.replace(use_mxu_wipeoff=True), dev,
+                                   WIDE_FACTOR, sec)
+    n_chunks = int(round(sec / c.block_sec)) // c.no_sec
+
+    def run(n):
+        session = Session(c, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summary = session.run_device_source(synth.chunk_planar, n)
+        torch.cuda.synchronize()
+        return session, summary, time.perf_counter() - t0
+
+    res = _profile_slice(run, c.chunks_per_download + 1, n_chunks,
+                         scn.rec_ecef)
+    k_steps = max(res["k_steps"], 1)
+    return {"signal_s": n_chunks * c.no_sec * c.block_sec,
+            "kernel_us_per_k_step": {
+                name: v["us"] / k_steps
+                for name, v in res["kernels_device_us"].items()}, **res}
+
+
 def profile_serving_slice(cfg, dev, n_streams: int = 8,
                           sec: float = 40.0) -> dict:
     """The serving slice: n_streams replicas of the scenario through
@@ -526,8 +615,8 @@ def profile_serving_slice(cfg, dev, n_streams: int = 8,
             "perf_s": dict(srv.perf),
             "err_m": [float(np.linalg.norm(ev.stat[0] - scn.rec_ecef))
                       if ev.stat is not None else None for ev in evs],
-            "fft_device_us": family("fft"),
-            "conv_device_us": family("conv"),
+            "fft_device_us": _family(times, "fft"),
+            "conv_device_us": _family(times, "conv"),
             "top_device_us": {k: {"us": us, "calls": n}
                               for k, (us, n) in top}}
 
@@ -537,7 +626,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None, help="also write the JSON here")
     ap.add_argument("--only", nargs="+", default=None,
                     choices=("kernels", "replay_slice", "device_slice",
-                             "serving_slice", "frontend_slice", "cw_slice"),
+                             "serving_slice", "frontend_slice", "cw_slice",
+                             "wideband_kernels", "wideband_slice"),
                     help="run only these parts (default: all)")
     args = ap.parse_args(argv)
     import torch
@@ -560,7 +650,9 @@ def main(argv=None) -> int:
              "device_slice": profile_device_slice,
              "serving_slice": profile_serving_slice,
              "frontend_slice": profile_frontend_slice,
-             "cw_slice": profile_cw_slice}
+             "cw_slice": profile_cw_slice,
+             "wideband_kernels": profile_wideband_kernels,
+             "wideband_slice": profile_wideband_slice}
     res = {"card": card}
     for name, fn in parts.items():
         if args.only is None or name in args.only:

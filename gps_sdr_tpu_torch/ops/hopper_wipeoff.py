@@ -26,13 +26,19 @@ What they compute, per channel c and block b of K-block step `step`:
 What bounds them on the H100: bytes.  At the product shapes (C=11, K=8,
 n_cyc=32, cs=2048) a step reads 8 blocks of 512 KB and writes 1.4 MB of
 center periods; the arithmetic is ~20 flops per sample and channel
-(~0.11 GFLOP a step), so the bound is ~1.7 us either way.  Both kernels
-are block-stationary, as the TPU kernels are: one CTA per (block,
-128-column tile) stages its slab in shared memory once and serves every
-channel from it, so each block leaves device memory once; and both are
-one launch: the CTAs of a block form a thread-block cluster that adds
-the tiles' shares of head and seg in a fixed order through distributed
-shared memory (no second kernel, no global scratch, no float atomics).
+(~0.11 GFLOP a step), so the bound is ~1.7 us either way.  At the
+16.384 MS/s multipath mode (cs=16384, n_cyc=8) a step reads 8.4 MB and
+writes 11.5 MB: ~6 us.  Both kernels are block-stationary, as the TPU
+kernels are: a CTA stages a [n_cyc, 128-column] slab of a block in shared
+memory once and serves every channel from it, so each block leaves
+device memory once; and both are one launch: the CTAs of a block form a
+thread-block cluster of min(cs/128, 16) CTAs, each of which takes
+cs/128/16 column tiles in a row once cs passes 2048, adds its tiles'
+shares of head and seg in tile order, and the cluster adds the CTAs'
+shares in a fixed order through distributed shared memory (no second
+kernel, no global scratch, no float atomics).  A CTA builds the tables
+of at most 16 channels at once and takes more in groups, so up to 32
+channels a stream fit its registers and shared memory.
   * mix_wipeoff takes the TPU kernel's MXU factorization: the wipeoff
     sums are one contraction of the slab's re/im rows against the
     channels' weight columns, on the tensor cores (mma.sync TF32 in the
@@ -74,14 +80,12 @@ import torch
 from gps_sdr_tpu_torch.config import ReceiverConfig
 from gps_sdr_tpu_torch.ops import _build, dsp
 
-# csrc/wipeoff_vpu.cu: columns per CTA (kTile), CTAs per cluster
-# (kMaxTiles), center periods held in registers (kMaxCa), channels whose
-# tables the CTA's shared memory holds (kMaxCh), code periods per block
-VPU_TILE, VPU_MAX_TILES, VPU_MAX_CA, VPU_MAX_CH = 128, 16, 16, 16
-VPU_N_CYC = (8, 16, 32, 64)
-# csrc/wipeoff.cu: columns per CTA (kTile), CTAs per cluster (kMaxTiles),
-# center periods held in registers (kMaxCa)
-MXU_TILE, MXU_MAX_TILES, MXU_MAX_CA = 128, 16, 16
+# what both kernels (csrc/wipeoff.cu, csrc/wipeoff_vpu.cu) take: cs a
+# multiple of the column tile (kTile) up to kMaxCs, the 16.384 MS/s mode;
+# n_cyc in N_CYC; corr_avg up to the center periods held in registers
+# (kMaxCa); up to kMaxCh channels a stream (two groups of 16)
+TILE, MAX_CS, MAX_CA, MAX_CH = 128, 16384, 16, 32
+N_CYC = (8, 16, 32, 64)
 
 
 def _mix_wipeoff_math(cfg: ReceiverConfig, k: int, s: torch.Tensor,
@@ -358,6 +362,24 @@ def _launch(name: str, args_type, cfg: ReceiverConfig, k: int, s, snp,
     return center, head, seg
 
 
+def _limits(name: str, cfg: ReceiverConfig, n_ch: int,
+            chunk_ptr: int) -> None:
+    """Raise on what the wipeoff kernel `name` (both take the same) does
+    not take: the configuration, the number of channels a stream, the
+    address of the chunk."""
+    cs, n_cyc, ca = cfg.code_samples, cfg.n_cyc, cfg.corr_avg
+    if cs % TILE or not 0 < cs <= MAX_CS or n_cyc not in N_CYC \
+            or not 0 < ca <= min(n_cyc, MAX_CA) or not 0 < n_ch <= MAX_CH:
+        raise ValueError(
+            f"{name} kernel: needs cs a multiple of {TILE} up to {MAX_CS}, "
+            f"n_cyc in {N_CYC}, 0 < corr_avg <= min(n_cyc, {MAX_CA}) and 1 "
+            f"to {MAX_CH} channels a stream; got cs={cs}, n_cyc={n_cyc}, "
+            f"corr_avg={ca}, {n_ch} channels")
+    if chunk_ptr % 16:
+        raise ValueError(f"{name} kernel: chunk must start on a 16-byte "
+                         "boundary (cp.async staging)")
+
+
 def mix_wipeoff(cfg: ReceiverConfig, k: int, s: torch.Tensor,
                 snp: torch.Tensor, phase: torch.Tensor, wipe: torch.Tensor,
                 chunk: torch.Tensor, step: int, codes: torch.Tensor,
@@ -378,19 +400,8 @@ def mix_wipeoff(cfg: ReceiverConfig, k: int, s: torch.Tensor,
                                  codes, n_streams)
     if chunk.device.type != "cuda":
         raise ValueError(f"wipeoff kernel: no path for {chunk.device}")
-    cs, n_cyc = cfg.code_samples, cfg.n_cyc
-    if cs % MXU_TILE or cs // MXU_TILE > MXU_MAX_TILES \
-            or n_cyc not in (8, 16, 32, 64) \
-            or not 0 < cfg.corr_avg <= min(n_cyc, MXU_MAX_CA):
-        raise ValueError(
-            f"wipeoff kernel: needs cs a multiple of {MXU_TILE} up to "
-            f"{MXU_TILE * MXU_MAX_TILES}, n_cyc in 8, 16, 32, 64 and 0 < "
-            f"corr_avg <= min(n_cyc, {MXU_MAX_CA}) (cs={cs}, n_cyc={n_cyc}, "
-            f"corr_avg={cfg.corr_avg})")
     per_stream = _stream_chunks(chunk, 2, n_streams, "wipeoff kernel")
-    if chunk.data_ptr() % 16:
-        raise ValueError("wipeoff kernel: chunk must start on a 16-byte "
-                         "boundary (cp.async staging)")
+    _limits("wipeoff", cfg, s.shape[0] // n_streams, chunk.data_ptr())
     out = _launch("wipeoff", _build.WipeoffArgs, cfg, k, s, snp, phase,
                   wipe, chunk, step, codes, n_streams, per_stream,
                   (torch.complex64, (cfg.ngps,)))
@@ -399,26 +410,6 @@ def mix_wipeoff(cfg: ReceiverConfig, k: int, s: torch.Tensor,
 
 
 mix_wipeoff.launches = 0
-
-
-def _vpu_limits(cfg: ReceiverConfig, n_ch: int, chunk_ptr: int) -> None:
-    """Raise on what csrc/wipeoff_vpu.cu does not take: the configuration,
-    the number of channels, the address of the chunk."""
-    cs, n_cyc, ca = cfg.code_samples, cfg.n_cyc, cfg.corr_avg
-    if cs % VPU_TILE or not 0 < cs // VPU_TILE <= VPU_MAX_TILES \
-            or n_cyc not in VPU_N_CYC \
-            or not 0 < ca <= min(n_cyc, VPU_MAX_CA) \
-            or not 0 < n_ch <= VPU_MAX_CH:
-        raise ValueError(
-            f"wipeoff_vpu kernel: needs cs a multiple of {VPU_TILE} up to "
-            f"{VPU_TILE * VPU_MAX_TILES} (one cluster of column tiles per "
-            f"block), n_cyc in {VPU_N_CYC}, 0 < corr_avg <= min(n_cyc, "
-            f"{VPU_MAX_CA}) and 1 to {VPU_MAX_CH} channels (the tables in "
-            f"shared memory); got cs={cs}, n_cyc={n_cyc}, corr_avg={ca}, "
-            f"{n_ch} channels")
-    if chunk_ptr % 16:
-        raise ValueError("wipeoff_vpu kernel: chunk must start on a "
-                         "16-byte boundary (cp.async staging)")
 
 
 def mix_wipeoff_vpu(cfg: ReceiverConfig, k: int, s: torch.Tensor,
@@ -431,7 +422,7 @@ def mix_wipeoff_vpu(cfg: ReceiverConfig, k: int, s: torch.Tensor,
     Arguments as mix_wipeoff, except chunk: f32[T, 2, n_cyc, cs], read by
     every stream, or [S, T, 2, n_cyc, cs], one chunk a stream (re and im
     planes of every block; the kernel reads block step*K + b itself).
-    At most VPU_MAX_CH channels a stream.  Returns (center
+    At most MAX_CH channels a stream.  Returns (center
     c64[K, S*C, cs], head c64[S*C, K], seg c64[S*C, K, n_cyc]), as
     mix_wipeoff does."""
     if chunk.device.type == "cpu":
@@ -440,7 +431,7 @@ def mix_wipeoff_vpu(cfg: ReceiverConfig, k: int, s: torch.Tensor,
     if chunk.device.type != "cuda":
         raise ValueError(f"wipeoff_vpu kernel: no path for {chunk.device}")
     per_stream = _stream_chunks(chunk, 4, n_streams, "wipeoff_vpu kernel")
-    _vpu_limits(cfg, s.shape[0] // n_streams, chunk.data_ptr())
+    _limits("wipeoff_vpu", cfg, s.shape[0] // n_streams, chunk.data_ptr())
     out = _launch("wipeoff_vpu", _build.WipeoffVpuArgs, cfg, k, s, snp,
                   phase, wipe, chunk, step, codes, n_streams, per_stream,
                   (torch.float32, (2, cfg.n_cyc, cfg.code_samples)))

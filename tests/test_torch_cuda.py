@@ -10,7 +10,8 @@ chip_smoke.py's (check_wipeoff for both wipeoff kernels, with crafted
 wipe delays, check_cheap_chain and check_cheap_case, and
 check_stream_axis for the serving path's stream axis, also with
 noise-led channels; check_decimation and check_excision for the front
-end), here also at the small test configuration, plus the
+end; check_repeat_bits and track_bias for the wideband slice), here also
+at the small test configuration, plus the
 slice with the kernels against the slice with their plain versions, and
 the slice on the card (run and run_device) against the slice on the
 CPU."""
@@ -94,25 +95,62 @@ def test_wipeoff_vpu_kernel_repeats_bit_identical(cuda, cfg, n_ch):
     """Two calls on the same inputs give the same bits: the column
     groups and the cluster's tiles are added in a fixed order, with no
     float atomics."""
-    import math
-
-    from gps_sdr_tpu_torch.ops import hopper_wipeoff, tracking
-
     st, chunk, codes, _ = chip_smoke.make_case(cfg, n_ch,
                                                2 * cfg.blocks_per_step,
                                                seed=5, device=cuda)
-    k = cfg.blocks_per_step
-    s = 2.0 * math.pi * st.freq / cfg.sample_rate
-    snp = torch.remainder(s * cfg.ngps, 2.0 * math.pi)
-    args = (cfg, k, s, snp, st.phase, chip_smoke.crafted_wipe(cfg, n_ch).to(
-        cuda), tracking.to_grouped_planar(cfg, chunk), 1, codes)
-    first = hopper_wipeoff.mix_wipeoff_vpu(*args)
-    for _ in range(3):
-        again = hopper_wipeoff.mix_wipeoff_vpu(*args)
-        torch.cuda.synchronize()
-        for a, b in zip(first, again):
-            assert torch.equal(torch.view_as_real(a).view(torch.int32),
-                               torch.view_as_real(b).view(torch.int32))
+    chip_smoke.check_repeat_bits(cfg, st, chunk, 1, codes, True,
+                                 wipe=chip_smoke.crafted_wipe(cfg, n_ch))
+
+
+@pytest.mark.parametrize("vpu", [False, True], ids=["wipeoff", "vpu"])
+@pytest.mark.parametrize("n_ch", [11, 32])
+@pytest.mark.parametrize("cs", [4096, 16384])
+def test_wideband_kernels_match_plain(cuda, cs, n_ch, vpu):
+    """chip_smoke phase 9a: both wipeoff kernels past one cluster of
+    column tiles (cs 4096: 2 tiles a CTA; 16384: 8), at n_cyc 8, corr_avg
+    4, K=8, with 11 and 32 channels (two channel groups), against their
+    plain versions with phase 2's tolerances, with the predicted and the
+    crafted wipe delays (0, 1, 127, 128, 2047, 2048, cs - 1), and a
+    repeated launch bit for bit."""
+    from gps_sdr_tpu_torch.kernel_profile import wide_config
+
+    cfg = wide_config(PRODUCT, cs // 2048)
+    st, chunk, codes, ffts = chip_smoke.make_case(
+        cfg, n_ch, 2 * cfg.blocks_per_step, 7 + n_ch, cuda, on_card=True)
+    chip_smoke.check_wipeoff(cfg, st, chunk, 1, codes, ffts, vpu=vpu)
+    wipe = chip_smoke.crafted_wipe(cfg, n_ch)
+    chip_smoke.check_wipeoff(cfg, st, chunk, 0, codes, ffts, vpu=vpu,
+                             wipe=wipe)
+    chip_smoke.check_repeat_bits(cfg, st, chunk, 1, codes, vpu, wipe=wipe)
+
+
+@pytest.mark.parametrize("vpu", [False, True], ids=["wipeoff", "vpu"])
+@pytest.mark.parametrize("n_cyc", [32, 64])
+def test_kernels_at_32_channels_and_long_blocks(cuda, n_cyc, vpu):
+    """The largest shared-memory carve both kernels take: 32 channels a
+    stream at n_cyc 32 and 64 (cs 2048), against the plain versions."""
+    cfg = PRODUCT.replace(n_cyc=n_cyc, max_sat=32)
+    st, chunk, codes, ffts = chip_smoke.make_case(
+        cfg, 32, 2 * cfg.blocks_per_step, 3, cuda, on_card=True)
+    chip_smoke.check_wipeoff(cfg, st, chunk, 1, codes, ffts, vpu=vpu,
+                             wipe=chip_smoke.crafted_wipe(cfg, 32))
+
+
+@pytest.mark.parametrize("case", chip_smoke.BIAS_CASES,
+                         ids=["clean", "d05", "d05pi", "d025"])
+def test_wideband_bias_bars_through_kernel_2(cuda, case):
+    """chip_smoke phase 9b: tests/test_multipath.py's 16.384 MS/s bias
+    bars (clean < 4 m, rays < 12 m) through the port's K-fused tracking
+    on the card with kernel 2 and cheap."""
+    from gps_sdr_tpu_torch.kernel_profile import wide_config
+    from gps_sdr_tpu_torch.ops import hopper_wipeoff
+
+    d, amp, ph, bar = case
+    cfg = wide_config(PRODUCT.replace(use_mxu_wipeoff=False))
+    hopper_wipeoff.mix_wipeoff_vpu.launches = 0
+    assert abs(chip_smoke.track_bias(cfg, d, amp, ph, cuda)) < bar
+    assert hopper_wipeoff.mix_wipeoff_vpu.launches \
+        == chip_smoke.BIAS_BLOCKS // cfg.blocks_per_step
 
 
 @pytest.mark.parametrize("cfg,n_ch", [(SMALL, 2), (PRODUCT, 11)],

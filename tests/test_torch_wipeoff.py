@@ -147,6 +147,38 @@ def test_plain_wipeoff_matches_numpy_definition():
                 mixed[first:first + CFG.corr_avg].mean(axis=0), atol=1e-4)
 
 
+def test_wipeoff_wrapper_limits():
+    """What csrc/wipeoff.cu takes: cs a multiple of 128 up to 16384 (past
+    one cluster of 16 column tiles from 4096 up), n_cyc 8 to 64, up to 32
+    channels a stream; and what it does not: cs off the 128-column tiling
+    or past 16384, 33 channels, a configuration outside its tiling, a
+    misaligned chunk; and a tensor on neither the CPU nor a card."""
+    meta = torch.empty((K, CFG.ngps), dtype=torch.complex64, device="meta")
+    with pytest.raises(ValueError, match="no path"):
+        hopper_wipeoff.mix_wipeoff(CFG, K, None, None, None, None, meta, 0,
+                                   None)
+    limits = hopper_wipeoff._limits
+    wide = ReceiverConfig(code_samples=16384, n_cyc=8, corr_avg=4)
+    for cfg, n_ch in ((CFG, 2), (ReceiverConfig(), 11),
+                      (CFG.replace(code_samples=4096), 2),
+                      (CFG.replace(code_samples=8192, n_cyc=16), 11),
+                      (CFG.replace(code_samples=2176), 2), (wide, 8),
+                      (wide, hopper_wipeoff.MAX_CH),
+                      (ReceiverConfig(n_cyc=64), hopper_wipeoff.MAX_CH)):
+        limits("wipeoff", cfg, n_ch, 4096)
+    for cfg, n_ch in ((wide, hopper_wipeoff.MAX_CH + 1), (CFG, 0),
+                      (CFG.replace(code_samples=200), 2),
+                      (wide.replace(code_samples=16384 + 128), 2),
+                      (CFG.replace(code_samples=32768), 2),
+                      (CFG.replace(n_cyc=12), 2),
+                      (CFG.replace(corr_avg=9), 2)):
+        with pytest.raises(ValueError, match="wipeoff kernel: needs"):
+            limits("wipeoff", cfg, n_ch, 0)
+    chunk = torch.empty(K * CFG.ngps + 2, dtype=torch.complex64)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        limits("wipeoff", CFG, 2, chunk[1:].data_ptr())
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernel's contraction form (_mix_wipeoff_mxu_math), on the CPU
 

@@ -163,23 +163,32 @@ def test_vpu_wrapper_refuses_other_devices():
     with pytest.raises(ValueError, match="no path"):
         hopper_wipeoff.mix_wipeoff_vpu(CFG, K, None, None, None, None, meta,
                                        0, None)
-    # what the kernel does not take: too many channels for its shared
-    # memory, a configuration outside its tiling, a misaligned chunk
-    limits = hopper_wipeoff._vpu_limits
-    for n_ch in (1, 12, hopper_wipeoff.VPU_MAX_CH):
-        limits(CFG, n_ch, 0)
-        limits(ReceiverConfig(), n_ch, 4096)
-    for cfg, n_ch in ((CFG, hopper_wipeoff.VPU_MAX_CH + 1), (CFG, 0),
-                      (CFG.replace(code_samples=192), 2),
+    # what the kernel takes: cs a multiple of 128 up to 16384 (past one
+    # cluster of 16 column tiles from 4096 up), up to 32 channels a stream;
+    # and what it does not: cs off the 128-column tiling or past 16384, a
+    # channel past 32, a configuration outside its tiling
+    limits = hopper_wipeoff._limits
+    wide = ReceiverConfig(code_samples=16384, n_cyc=8, corr_avg=4)
+    for cfg, n_ch in ((CFG, 1), (CFG, 12), (ReceiverConfig(), 11),
                       (CFG.replace(code_samples=4096, n_cyc=32), 2),
+                      (CFG.replace(code_samples=2176), 2), (wide, 11),
+                      (wide, hopper_wipeoff.MAX_CH),
+                      (ReceiverConfig(n_cyc=64), hopper_wipeoff.MAX_CH)):
+        limits("wipeoff_vpu", cfg, n_ch, 0)
+        limits("wipeoff_vpu", cfg, n_ch, 4096)
+    for cfg, n_ch in ((CFG, hopper_wipeoff.MAX_CH + 1), (wide, 33),
+                      (CFG, 0), (CFG.replace(code_samples=192), 2),
+                      (CFG.replace(code_samples=4160), 2),
+                      (wide.replace(code_samples=16384 + 128), 2),
+                      (CFG.replace(code_samples=32768), 2),
                       (CFG.replace(n_cyc=24), 2),
                       (CFG.replace(n_cyc=32, corr_avg=20), 2)):
         with pytest.raises(ValueError, match="wipeoff_vpu kernel: needs"):
-            limits(cfg, n_ch, 0)
+            limits("wipeoff_vpu", cfg, n_ch, 0)
     planar = torch.empty(K * 2 * CFG.n_cyc * CFG.code_samples + 4)
     assert planar.data_ptr() % 16 == 0
     with pytest.raises(ValueError, match="16-byte boundary"):
-        limits(CFG, 2, planar[1:].data_ptr())
+        limits("wipeoff_vpu", CFG, 2, planar[1:].data_ptr())
 
 
 # ---------------------------------------------------------------------------
