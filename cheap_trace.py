@@ -7,7 +7,9 @@ block, on one NVIDIA GPU.
 The inputs are chip_smoke.stream_case's replicas of one shared chunk,
 their Dopplers 3 Hz apart (the far streams' channels are pulled off
 their signal) or 0.5 Hz apart (every channel stays on it), at the
-product and the tests' small configuration (CASES).
+product and the tests' small configuration (CASES); then each K-step of
+chip_smoke.py's chained cheap checks at n_cyc 32 (phase 3) and n_cyc 64
+(phase 10e) (CHAINS).
 
 The kernel side is a copy of gps_sdr_tpu_torch/csrc/cheap.cu into which
 this script inserts, at fixed lines of the PLL warp (TRACE_INSERTS),
@@ -44,12 +46,19 @@ import numpy as np
 
 import chip_smoke
 
-TRACE_LEN = 3 * 64 + 8          # kTraceLen below
+SLOTS = 128                     # csrc/cheap.cu kMaxSlots
+# kTraceLen below: a block's SLOTS slots of real parts, imaginary parts
+# and arctans, then 8 scalars
+TRACE_LEN = 3 * SLOTS + 8
 _SCALARS = ("phase_dev", "mean_df", "dsum", "df", "dphi_in", "df_sum_in",
             "locked_in")
 # (cases' configuration, streams, Doppler step Hz, seed)
 CASES = [(cfg, n, step, seed) for cfg in ("product", "small")
          for n in (3, 8) for step in (3.0, 0.5) for seed in (5, 7)]
+# (n_cyc, channels): chip_smoke.py's chained K-steps (cheap_chain_args)
+# on make_case(seed 5 + channels), as phase 3 (n_cyc 32) and phase 10e
+# (n_cyc 64) run them
+CHAINS = [(32, 11), (64, 11), (64, 32)]
 
 # (line of csrc/cheap.cu, text inserted before it): the trace buffer,
 # the per-slot writes once a block's arctans are formed, the scalars
@@ -60,7 +69,7 @@ TRACE_INSERTS = [
      "__device__ float* g_trace;\n\n"),
     ("    if (lane == 0) m.locked[b] = locked;",
      "    float* const tr = g_trace + cb * kTraceLen;\n"
-     "    for (int h = 0; h < 2; ++h) {\n"
+     "    for (int h = 0; h < H; ++h) {\n"
      "      const int r = lane + 32 * h;\n"
      "      tr[r] = mr[h];\n"
      "      tr[kMaxSlots + r] = mi[h];\n"
@@ -128,10 +137,11 @@ def kernel_trace(dll, args):
     with mock.patch.object(_build, "launch", traced):
         out = hopper_cheap.cheap_scan(*args)
     torch.cuda.synchronize()
-    tr = {"rot": trace[..., :128].reshape(trace.shape[:2] + (2, 64)),
-          "ph": trace[..., 128:192]}
+    tr = {"rot": trace[..., :2 * SLOTS].reshape(trace.shape[:2]
+                                                + (2, SLOTS)),
+          "ph": trace[..., 2 * SLOTS:3 * SLOTS]}
     for i, name in enumerate(_SCALARS):
-        tr[name] = trace[..., 192 + i]
+        tr[name] = trace[..., 3 * SLOTS + i]
     return out, tr
 
 
@@ -157,14 +167,14 @@ def plain_trace(args):
         df, phase_offset = res[0], res[1]
         dphi = acc.get("dphi", torch.zeros_like(df))
         df_sum = acc.get("df_sum", torch.zeros_like(df))
-        rot = torch.zeros((df.shape[0], 2, 64), dtype=torch.float32,
+        rot = torch.zeros((df.shape[0], 2, SLOTS), dtype=torch.float32,
                           device=df.device)
         rot[:, 0, :means.shape[1]] = means.real
         rot[:, 1, :means.shape[1]] = means.imag
-        ph = torch.zeros((df.shape[0], 64), dtype=torch.float32,
+        ph = torch.zeros((df.shape[0], SLOTS), dtype=torch.float32,
                          device=df.device)
         ph[:, :means.shape[1]] = torch.atan(means.imag / means.real)
-        dsum = df_buf.sum(dim=-1)
+        dsum = df_buf.double().sum(dim=-1).float()        # as _pll sums
         for name, v in (("rot", rot), ("ph", ph), ("dsum", dsum),
                         ("mean_df", dsum / torch.clamp(df_cnt, min=1).to(
                             torch.float32)),
@@ -229,12 +239,9 @@ def step_angle(cfg, out):
             ).double().cpu().numpy()
 
 
-def trace_case(dll, cfg, n_streams, dopp_step, seed, dev):
-    """One case: the summary dict, and the per-block rows of its worst
-    channel."""
-    import torch
-
-    from gps_sdr_tpu_torch.ops import hopper_cheap, tracking
+def stream_args(cfg, n_streams, dopp_step, seed, dev):
+    """cheap_scan's arguments on chip_smoke.stream_case's first K-step."""
+    from gps_sdr_tpu_torch.ops import tracking
 
     k = cfg.blocks_per_step
     st, chunk, codes, ffts = chip_smoke.stream_case(
@@ -242,8 +249,18 @@ def trace_case(dll, cfg, n_streams, dopp_step, seed, dev):
     heavy = tracking.heavy_stage(cfg, k, st, chunk, 0, codes, ffts,
                                  n_streams=n_streams)
     _, erased = tracking._erased(st, 1)
-    args = (cfg, k, heavy.head_k, heavy.seg_sums_k, heavy.delay_k,
+    return (cfg, k, heavy.head_k, heavy.seg_sums_k, heavy.delay_k,
             heavy.wipe_delay, erased)
+
+
+def trace_case(dll, args, label: dict):
+    """One call of cheap_scan on `args`: the summary dict (`label` and
+    the findings), and the per-block rows of its worst channel."""
+    import torch
+
+    from gps_sdr_tpu_torch.ops import hopper_cheap
+
+    cfg, k, erased = args[0], args[1], args[-1]
     prod = hopper_cheap.cheap_scan(*args)
     got, kt = kernel_trace(dll, args)
     want, pt = plain_trace(args)
@@ -257,8 +274,7 @@ def trace_case(dll, cfg, n_streams, dopp_step, seed, dev):
     over = ring.numpy() > 1e-5
     c = int(ring.argmax())
     summary = {
-        "cfg": "product" if cfg.code_samples == 2048 else "small",
-        "n_streams": n_streams, "dopp_step": dopp_step, "seed": seed,
+        **label, "n_cyc": cfg.n_cyc,
         "channels": int(ring.numel()),
         "df_ring_max_err": float(ring.max()),
         "over_1e-5": int(over.sum()),
@@ -328,9 +344,19 @@ def main() -> int:
             "small": product.replace(code_samples=256, n_cyc=8, corr_avg=4,
                                      sweep_corr_avg=2, blocks_per_step=4,
                                      corr_q_window_sec=2)}
+    cases = [(stream_args(cfgs[name], n, step, seed, dev),
+              {"cfg": name, "n_streams": n, "dopp_step": step,
+               "seed": seed}) for name, n, step, seed in CASES]
+    for n_cyc, n_ch in CHAINS:
+        cfg = product.replace(n_cyc=n_cyc)
+        case = chip_smoke.make_case(cfg, n_ch, cfg.no_sec, 5 + n_ch, dev,
+                                    on_card=True)
+        for i, args in enumerate(chip_smoke.cheap_chain_args(cfg, *case)):
+            cases.append((args, {"cfg": "chain", "channels_in": n_ch,
+                                 "step": i}))
     worst = None
-    for name, n, step, seed in CASES:
-        summary, blocks = trace_case(dll, cfgs[name], n, step, seed, dev)
+    for args, label in cases:
+        summary, blocks = trace_case(dll, args, label)
         print(json.dumps(summary), flush=True)
         if worst is None or summary["df_ring_max_err"] > \
                 worst[0]["df_ring_max_err"]:

@@ -6,9 +6,10 @@
 Phases (any failure raises and the script exits non-zero):
   0. device: CUDA must be available; prints the card's name and power
      limit (nvidia-smi);
-  1. build: compiles the port's CUDA kernels from the repository's
-     sources (one nvcc per source, all at once, sm_90a) and prints the
-     seconds taken;
+  1. build: compiles the port's CUDA kernels and its native host core
+     from the repository's sources (one nvcc per kernel source, sm_90a,
+     and one g++ per host source, csrc/{evalcore,navscan,ingest}.cpp,
+     all at once) and prints the seconds taken;
   2. the wipeoff kernel (csrc/wipeoff.cu) against its plain PyTorch
      version on the card, at the product shapes (11 channels, K=8, one
      32-block chunk), then with wipe delays 0, 1, 127, 128 and cs - 1 at
@@ -17,7 +18,8 @@ Phases (any failure raises and the script exits non-zero):
      the product shapes: 8 chained K-steps, one from a full wrapped
      correlation ring, one with ms_time past 2^24; then the crafted case
      (cheap_case) at the product and the small configuration, with the
-     kernel's input state checked unchanged;
+     kernel's input state checked unchanged (the kernel takes n_cyc + 1
+     <= 128 slots, n_cyc 8 to 64: phase 10e runs these checks at 64);
   4. the replay slice: the examples/synthetic_fix.py default scenario
      (6 satellites, seed 3, noise 0.5, 40 s of IQ synthesized on the
      host) through the port's Session.run_source on the card; the
@@ -111,7 +113,34 @@ Phases (any failure raises and the script exits non-zero):
         fixes, mean fix < 10 m, kernel 1 and cheap once a K-step, kernel 2
         never; then at 2.048 MS/s with n_cyc 8 at the same C/N0 (the
         per-sample noise sqrt(8) x smaller), logged against
-        test_multipath's 60 m bar.
+        test_multipath's 60 m bar;
+ 10. the host slice (runtime/transport.py, the native host core, the
+     CLI's two-process topology, `epochs` and `live`), on phase 4's
+     blocks written as an iq8 capture (times HOST_SCALE, unclipped):
+     b. `replay --role both` through cli.main in this process on the
+        card, its native-core calls and its epochs recorded; then `eval`
+        in a child process on two free UDP ports (never 61431/61432),
+        its idle limit set to EVAL_IDLE_SEC, fed by `replay --role recv`
+        through cli.main in this process on the card: the eval exits 0,
+        the scenario's PRNs are acquired, >= 4 ephemerides decode, the
+        mean fix is within 8 m of the truth, kernel 1 and cheap launch
+        once a K-step and kernel 2 never, every epoch sent is received,
+        and the positions equal the in-process run's epoch by epoch
+        within 1e-3 m; the child is killed in a `finally`;
+     a. the native host core against the port's numpy paths on the
+        calls 10b recorded, at tests/test_native.py's tolerances (ECEF,
+        the fix solver, sigma/slope, the unwrap, the subframe scan), the
+        IQ unpack and the native ring; the evaluator's ms per epoch over
+        10b's epochs, native and numpy;
+     c. `epochs` of 10b's recorded epochs: the in-process run's
+        positions exactly;
+     d. `live --max-sec 12` through a stand-in `rtlsdr` module whose
+        RtlSdr reads the capture's blocks: rc 0, the scenario's PRNs,
+        kernel 1 and cheap once a K-step, and its --record-iq file read
+        back by replay_blocks to the same blocks;
+     e. phase 3's cheap checks at n_cyc 64 (the kernel's four-slot
+        build) with 11 and 32 channels, and the cheap kernel's wrapper
+        and plain times and bound at cs 16384, n_cyc 8, 11 channels.
 The line before the last holds the kernels' launches, errors, times and
 bounds as JSON; the last line is {"ok": true, "device": {...}}.
 """
@@ -412,15 +441,15 @@ def cheap_bound(cfg, args, out) -> tuple[float, str]:
     return _bound(n_bytes, n_ops)
 
 
-def check_cheap_chain(cfg, states, chunk, codes, code_ffts,
-                      timing: bool = False) -> dict:
-    """CHEAP_STEPS chained K-steps; at each, the cheap kernel and its plain
-    version take the same erased state and heavy result, and the chain
-    advances on the plain result.  Step 2 starts from a full, wrapped
-    correlation ring and df ring; step 5 from ms_time = 2^25 + 3."""
+def cheap_chain_args(cfg, states, chunk, codes, code_ffts):
+    """The arguments of cheap_scan at each of CHEAP_STEPS chained K-steps
+    (yielded; when the caller resumes, the chain advances by
+    tracking.channel_step_k): each step's erased state and heavy result.  Step 2
+    starts from a full, wrapped correlation ring and df ring; step 5
+    from ms_time = 2^25 + 3."""
     import numpy as np
     import torch
-    from gps_sdr_tpu_torch.ops import hopper_cheap, tracking
+    from gps_sdr_tpu_torch.ops import tracking
 
     k = cfg.blocks_per_step
     n_ch = states.prn.shape[0]
@@ -429,8 +458,6 @@ def check_cheap_chain(cfg, states, chunk, codes, code_ffts,
     rng = np.random.default_rng(11)
     dev = chunk.device
     st = states
-    worst, n_edges, ms_checked = 0.0, 0, False
-    times = {}
     for i in range(CHEAP_STEPS):
         if i == 2:
             st = st._replace(
@@ -451,8 +478,24 @@ def check_cheap_chain(cfg, states, chunk, codes, code_ffts,
         heavy = tracking.heavy_stage(cfg, k, st, chunk, i % steps_per_chunk,
                                      codes, code_ffts)
         _, erased = tracking._erased(st, sno)
-        args = (cfg, k, heavy.head_k, heavy.seg_sums_k, heavy.delay_k,
-                heavy.wipe_delay, erased)
+        yield (cfg, k, heavy.head_k, heavy.seg_sums_k, heavy.delay_k,
+               heavy.wipe_delay, erased)
+        st, _ = tracking.channel_step_k(cfg, k, st, heavy, sno)
+
+
+def check_cheap_chain(cfg, states, chunk, codes, code_ffts,
+                      timing: bool = False) -> dict:
+    """CHEAP_STEPS chained K-steps (cheap_chain_args); at each, the cheap
+    kernel and its plain version take the same erased state and heavy
+    result."""
+    import torch
+    from gps_sdr_tpu_torch.ops import hopper_cheap
+
+    worst, n_edges, ms_checked = 0.0, 0, False
+    times = {}
+    for i, args in enumerate(cheap_chain_args(cfg, states, chunk, codes,
+                                              code_ffts)):
+        erased = args[-1]
         got = hopper_cheap.cheap_scan(*args)
         want = hopper_cheap.cheap_scan_plain(*args)
         torch.cuda.synchronize()
@@ -466,7 +509,6 @@ def check_cheap_chain(cfg, states, chunk, codes, code_ffts,
                 lambda: hopper_cheap.cheap_scan_plain(*args))
             times["bound_ms"], times["bound_by"] = cheap_bound(cfg, args,
                                                                got)
-        st, _ = tracking.channel_step_k(cfg, k, st, heavy, sno)
     if not ms_checked:
         raise AssertionError("ms_time > 2^24 case counted no ms")
     return dict(max_abs_err=worst, edges=n_edges, **times)
@@ -902,7 +944,8 @@ def run_slice(cfg) -> dict:
                              f"{want_steps} (receiver {rx.status.k_steps}) "
                              "or wipeoff_vpu launched")
     return dict(launches=launches, err_m=err, wall_s=wall,
-                rtf=SLICE_SEC / wall, fixes=summary["n_positions"])
+                rtf=SLICE_SEC / wall, fixes=summary["n_positions"],
+                scn=scn, blocks=blocks)
 
 
 def run_device_slice(base_cfg) -> dict:
@@ -1764,6 +1807,533 @@ def run_wideband_slice(dev, sec: float = 36.0) -> dict:
 
 
 # --------------------------------------------------------------------------
+# the host slice (phase 10; the native-core check and the UDP helpers also
+# used by tests/test_torch_native.py and tests/test_torch_cli_modes.py)
+
+LIVE_SEC = 12.0
+
+
+def cli_run(argv, ports=None) -> tuple[int, str]:
+    """(rc, standard output) of cli.main(argv) in this process, with the
+    transport's ports set to `ports` (data, ctrl) for the call."""
+    import contextlib
+    import io
+
+    from gps_sdr_tpu_torch import cli
+    from gps_sdr_tpu_torch.runtime import transport
+
+    saved = transport.DATA_PORT, transport.CTRL_PORT
+    buf = io.StringIO()
+    try:
+        if ports is not None:
+            transport.DATA_PORT, transport.CTRL_PORT = ports
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(list(argv))
+    finally:
+        transport.DATA_PORT, transport.CTRL_PORT = saved
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log("      " + line)
+    return rc, out
+
+
+def printed_prns(out: str) -> list:
+    """The PRN list of the CLI's `acquired PRNs [...]`."""
+    import re
+
+    m = re.search(r"acquired PRNs \[([\d, ]*)\]", out)
+    if m is None:
+        raise AssertionError(f"no acquired PRNs in {out!r}")
+    return [int(v) for v in m.group(1).split(",") if v.strip()]
+
+
+def host_core(native: bool):
+    """Context: the native host core on (GSDR_EVALCORE=GSDR_NAVSCAN=1) or
+    off (0, the numpy paths)."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = {k: os.environ.get(k) for k in ("GSDR_EVALCORE",
+                                                "GSDR_NAVSCAN")}
+        os.environ.update(GSDR_EVALCORE=str(int(native)),
+                          GSDR_NAVSCAN=str(int(native)))
+        try:
+            yield
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    return ctx()
+
+
+def record_native_calls():
+    """Context yielding {name: [(args, kwargs, result, args after)]}: a
+    deep copy of every call of the native host core while it is open
+    (_evalcore's ecef_batch, sigma_slope and unwrap, the evaluator's
+    solve_fix_batch, which reaches _evalcore.fix_batch, and _navscan's
+    navscan), made by wrapping them."""
+    import contextlib
+    import copy
+
+    from gps_sdr_tpu_torch import _evalcore
+    from gps_sdr_tpu_torch.models import _navscan
+    from gps_sdr_tpu_torch.runtime import evaluator
+
+    targets = {"ecef_batch": _evalcore, "sigma_slope": _evalcore,
+               "unwrap": _evalcore, "solve_fix_batch": evaluator,
+               "navscan": _navscan}
+
+    @contextlib.contextmanager
+    def ctx():
+        calls = {name: [] for name in targets}
+        saved = {name: getattr(mod, name) for name, mod in targets.items()}
+
+        def recorder(name, fn):
+            def call(*args, **kw):
+                before = copy.deepcopy((args, kw))
+                out = fn(*args, **kw)
+                calls[name].append((*before, copy.deepcopy(out),
+                                    copy.deepcopy(args)))
+                return out
+            return call
+        for name, mod in targets.items():
+            setattr(mod, name, recorder(name, saved[name]))
+        try:
+            yield calls
+        finally:
+            for name, mod in targets.items():
+                setattr(mod, name, saved[name])
+    return ctx()
+
+
+def _worst(worst: dict, name: str, got, want, atol=0.0, rtol=0.0) -> None:
+    """Raise unless |got - want| <= atol + rtol |want|; keep the largest
+    absolute difference under `name`."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        raise AssertionError(f"native {name}: shape {got.shape} != "
+                             f"{want.shape}")
+    err = np.abs(got - want)
+    if err.size:
+        worst[name] = max(worst.get(name, 0.0), float(err.max()))
+    if not (err <= atol + rtol * np.abs(want)).all():
+        raise AssertionError(f"native {name}: max err {float(err.max()):.3g}")
+
+
+def check_native_core(cfg, calls, records, words) -> dict:
+    """Phase 10a: the native host core against the port's numpy paths, at
+    tests/test_native.py's tolerances, on the calls `calls` recorded
+    (record_native_calls) while a run made the epochs `records`: ECEF
+    (1e-6 m, 1e-18 s), the fix solver (1e-5 m; cov rtol 1e-6), sigma/slope and the slope history (rtol 1e-9 / 1e-12),
+    the unwrap (rtol 1e-12, the same flagged steps), the subframe scan
+    (the same subframes and buffer trim); then the IQ unpack of `words`
+    (bit for bit, also from a file) and the native ring against the
+    deque (drop-oldest accounting, bit for bit).  Then the evaluator over
+    `records` with the core on and off, in turns: its ms per epoch each
+    way, and their positions within 1e-3 m of each other."""
+    import tempfile
+
+    import numpy as np
+
+    from gps_sdr_tpu_torch.config import GPS_C
+    from gps_sdr_tpu_torch.models import navmsg, orbits
+    from gps_sdr_tpu_torch.models.pseudorange import (EPHEM_KEYS,
+                                                      PseudorangeEngine,
+                                                      max_slope)
+    from gps_sdr_tpu_torch.ops import pvt
+    from gps_sdr_tpu_torch.runtime import _native, buffer, sources
+    from gps_sdr_tpu_torch.runtime.evaluator import (EpochInput, Evaluator,
+                                                     unwrap_numpy)
+
+    worst, n_iter_diff = {}, 0
+    for args, _, (x, y, z, dts), _ in calls["ecef_batch"]:
+        tow, dt, mat, rel = args
+        cols = {k: mat[:, i] for i, k in enumerate(EPHEM_KEYS)}
+        xp, yp, zp, dtp = orbits.ecef_coord(tow, cols, dt_from_tow=dt,
+                                            rel_corr=rel)
+        _worst(worst, "ecef_m", np.stack([x, y, z]), np.stack([xp, yp, zp]),
+               atol=1e-6)
+        _worst(worst, "ecef_dtsv_s", dts, dtp, atol=1e-18)
+    with host_core(False):
+        for args, kw, got, _ in calls["solve_fix_batch"]:
+            want = pvt.solve_fix_batch(*args, **kw)
+            for name in ("pos", "range_est", "meas_delay", "res_m"):
+                _worst(worst, f"fix_{name}_m", getattr(got, name),
+                       getattr(want, name), atol=1e-5)
+            if (got.cov is None) != (want.cov is None):
+                raise AssertionError("native fix: covariance differs")
+            if got.cov is not None:
+                _worst(worst, "fix_cov", got.cov, want.cov, atol=1e-9,
+                       rtol=1e-6)
+            # the iteration counts are not compared: at the evaluator's
+            # gate (1e-8) both solvers stop at the rounding floor of the
+            # residual, after 8 to 15 iterations in either order
+            n_iter_diff = max(n_iter_diff, int(np.abs(
+                got.n_iter - want.n_iter).max(initial=0)))
+        for args, _, (sig, slp), after in calls["sigma_slope"]:
+            snos, cps, no_sec, n_cyc, cap, m_per_smp, hist = args
+            if (no_sec, n_cyc, cap, m_per_smp) != (
+                    cfg.no_sec, cfg.n_cyc, max_slope(cfg),
+                    GPS_C / cfg.sample_rate):
+                raise AssertionError("sigma_slope call of another config")
+            eng = PseudorangeEngine(1, cfg)
+            eng.slope_hist = list(hist)
+            sig_p, slp_p = eng._sigma_and_slope(snos, cps)
+            _worst(worst, "sigma_m", sig, sig_p, atol=1e-12, rtol=1e-9)
+            _worst(worst, "slope", slp, slp_p, atol=1e-15, rtol=1e-9)
+            _worst(worst, "slope_hist", after[6], eng.slope_hist, rtol=1e-12)
+        for args, _, (corr, flagged), _ in calls["unwrap"]:
+            corr_p, flagged_p = unwrap_numpy(*args)
+            _worst(worst, "unwrap_samples", corr, corr_p, rtol=1e-12)
+            if not np.array_equal(flagged, flagged_p):
+                raise AssertionError("native unwrap: flagged steps differ")
+        n_sub = 0
+        for args, _, (starts, rows, final), _ in calls["navscan"]:
+            bits = args[0]
+            nd = navmsg.NavDecoder(ngps=cfg.ngps)
+            nd.bits = np.asarray(bits, np.int8).copy()
+            nd.bits_st = np.arange(len(bits), dtype=np.int64)
+            want = nd._scan_buffer()
+            got = []
+            for si, row in zip(starts.tolist(), rows):
+                sf = navmsg.fields_from_source(row)
+                sf["ST"] = si
+                got.append(sf)
+            if got != want or len(nd.bits) != len(bits) - final:
+                raise AssertionError("native navscan differs from the "
+                                     "numpy walk")
+            n_sub += len(got)
+
+    n_words = min(words.size, 1 << 22)
+    w = np.ascontiguousarray(words.reshape(-1)[:n_words])
+    if not np.array_equal(_native.unpack_iq(w), sources.unpack_iq_numpy(w)):
+        raise AssertionError("native unpack differs from numpy")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cap.bin")
+        w.tofile(path)
+        blk = _native.unpack_iq_file(path, 1000, cfg.ngps)
+        if not np.array_equal(blk, sources.unpack_iq_numpy(
+                w[1000:1000 + cfg.ngps])):
+            raise AssertionError("native file unpack differs from numpy")
+    ring, deque = buffer.make_buffer(4, cfg.ngps), buffer.BlockBuffer(4)
+    blocks = sources.unpack_iq_numpy(w[:6 * cfg.ngps]).reshape(6, cfg.ngps)
+    for b in blocks:                       # the 5th push drops blocks 0-3
+        ring.push(b)
+        deque.push(b)
+    for _ in range(3):
+        (gb, gs), (wb, ws) = ring.pull(), deque.pull()
+        if gs != ws or (wb is None) != (gb is None) or (
+                wb is not None and not np.array_equal(gb, wb)):
+            raise AssertionError("native ring differs from the deque")
+
+    def evaluate(native):
+        with host_core(native):
+            ev = Evaluator(cfg)
+            t0 = time.perf_counter()
+            for rec in records:
+                ev.process(EpochInput(*rec))
+            return (time.perf_counter() - t0) / len(records) * 1e3, ev
+    ms = {False: [], True: []}
+    evs = {}
+    for native in (False, True, True, False):
+        t, evs[native] = evaluate(native)
+        ms[native].append(t)
+    pos_n, pos_p = (np.asarray(evs[k].positions) for k in (True, False))
+    if pos_n.shape != pos_p.shape or not len(pos_n):
+        raise AssertionError(f"evaluator fixes differ in number: "
+                             f"{pos_n.shape} vs {pos_p.shape}")
+    _worst(worst, "evaluator_positions_m", pos_n[:, 1:], pos_p[:, 1:],
+           atol=1e-3)
+    return dict(max_abs_err=worst, fix_iterations_max_diff=n_iter_diff,
+                subframes_scanned=n_sub,
+                calls={k: len(v) for k, v in calls.items()},
+                epochs=len(records), fixes=len(pos_n),
+                eval_ms_per_epoch_native=sum(ms[True]) / 2,
+                eval_ms_per_epoch_numpy=sum(ms[False]) / 2)
+
+
+def _positions(prefix: str):
+    import numpy as np
+
+    with open(f"{prefix}_gpsPos.json") as f:
+        return np.asarray(json.load(f), np.float64)
+
+
+def _records_prns(records) -> list:
+    return sorted({prn for rec in records for prn, lst in rec[2].items()
+                   if lst})
+
+
+class StandInRtlSdr:
+    """A stand-in for pyrtlsdr's RtlSdr: read_samples hands out the
+    blocks of BLOCKS in order; the settings are plain attributes, and
+    each instance is kept in `opened`."""
+
+    BLOCKS = ()
+    opened: list = []
+
+    def __init__(self):
+        self._it = iter(type(self).BLOCKS)
+        type(self).opened.append(self)
+
+    def set_bias_tee(self, on):
+        self.bias_tee = on
+
+    def read_samples(self, n):
+        block = next(self._it)
+        if block.shape != (n,):
+            raise ValueError(f"asked for {n} samples, block has "
+                             f"{block.shape}")
+        return block
+
+    def close(self):
+        pass
+
+
+def stand_in_rtlsdr(blocks):
+    """Context yielding the class RtlSdr of a module `rtlsdr`, put in
+    sys.modules (the live source imports it), whose instances read
+    `blocks`."""
+    import contextlib
+    import types
+
+    @contextlib.contextmanager
+    def ctx():
+        mod = types.ModuleType("rtlsdr")
+        mod.RtlSdr = type("RtlSdr", (StandInRtlSdr,),
+                          {"BLOCKS": blocks, "opened": []})
+        saved = sys.modules.get("rtlsdr")
+        sys.modules["rtlsdr"] = mod
+        try:
+            yield mod.RtlSdr
+        finally:
+            if saved is None:
+                sys.modules.pop("rtlsdr", None)
+            else:
+                sys.modules["rtlsdr"] = saved
+    return ctx()
+
+
+def _want_steps(cfg, n_blocks: int) -> int:
+    """K-steps of Receiver.run over n_blocks blocks (block 0: the cold
+    sweep; whole chunks of no_sec blocks, then the tail's whole
+    K-steps)."""
+    t, k = cfg.no_sec, cfg.blocks_per_step
+    tracked = n_blocks - 1
+    return (tracked // t) * (t // k) + (tracked % t) // k
+
+
+def _check_launches(tag, launches, steps) -> None:
+    if not (launches["wipeoff"] == launches["cheap"] == steps
+            and launches["wipeoff_vpu"] == 0):
+        raise AssertionError(f"[{tag}] kernel launches {launches} != "
+                             f"K-steps {steps}, or kernel 2 launched")
+
+
+def run_host_slice(cfg, scn, blocks, device: str = "cuda",
+                   build_s: float | None = None) -> dict:
+    """Phase 10: the host slice on the card.  Phase 4's blocks, scaled by
+    HOST_SCALE and packed into an iq8 capture (unclipped), then:
+      b. `replay --role both` in this process (the native core's calls
+         recorded for 10a, the epochs recorded for 10c), then `eval` in a
+         child process on two free UDP ports with the native core, fed by
+         `replay --role recv` in this process on the card: the eval exits
+         0, the scenario's PRNs acquired, >= 4 ephemerides, the mean fix
+         within 8 m, kernel 1 and cheap once a K-step and kernel 2
+         never, every epoch sent received, and the positions equal to
+         the in-process run's epoch by epoch within 1e-3 m;
+      a. check_native_core on what 10b recorded;
+      c. `epochs` of the recorded epochs: the in-process run's positions;
+      d. `live --max-sec 12` with a stand-in rtlsdr reading the capture's
+         blocks: rc 0, the scenario's PRNs, kernel 1 and cheap on every
+         K-step, and its --record-iq capture read back by replay_blocks
+         to the same blocks.
+    No child process outlives a failure.  `device` is the receivers'
+    (the CPU runs the plain path, which counts no launches); build_s,
+    phase 1's seconds to build the kernels and the host libraries
+    together, goes into 10a's record."""
+    import re
+    import tempfile
+
+    import numpy as np
+
+    from gps_sdr_tpu_torch.kernel_profile import (EVAL_IDLE_SEC, HOST_SCALE,
+                                                  free_udp_ports, start_eval)
+    from gps_sdr_tpu_torch.runtime import _native
+    from gps_sdr_tpu_torch.runtime.sources import replay_blocks
+    from gps_sdr_tpu_torch.utils import io
+    from gps_sdr_tpu_torch.utils.io import load_epoch_records
+
+    truth = sorted(s.prn for s in scn.sats)
+    n_blocks = len(blocks)
+    steps = _want_steps(cfg, n_blocks)
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cap = os.path.join(tmp, "cap.bin")
+        words = _native.pack_iq(HOST_SCALE * blocks)
+        words.tofile(cap)
+        one, two, three = (os.path.join(tmp, n) for n in ("one", "two",
+                                                         "three"))
+        ep_path = os.path.join(tmp, "epochs.pickle")
+
+        # 10b, the in-process run of the same capture
+        _reset_launches()
+        t0 = time.perf_counter()
+        with record_native_calls() as calls:
+            rc, out = cli_run(["replay", cap, "--device", device, "--ui",
+                               "none", "--out", one, "--record-epochs",
+                               ep_path])
+        wall_both = time.perf_counter() - t0
+        launches = _read_launches()
+        if rc != 0 or printed_prns(out) != truth:
+            raise AssertionError(f"[10b] in-process replay rc {rc}, PRNs "
+                                 f"{printed_prns(out)} != {truth}")
+        _check_launches("10b in-process", launches, steps)
+        records = load_epoch_records(ep_path)
+        pos_one = _positions(one)
+
+        # 10a
+        na = dict(check_native_core(cfg, calls, records, words),
+                  build_s_with_kernels=build_s)
+        log(f"[10a] native host core vs numpy on {na['epochs']} epochs: "
+            f"{json.dumps(na)}")
+        res["native"] = na
+
+        # 10b, the two processes
+        data, ctrl = free_udp_ports(2)
+        eph = os.path.join(tmp, "eph.json")
+        t0 = time.perf_counter()
+        proc = start_eval(["eval", "--ui", "none", "--out", two,
+                           "--ephem-cache", eph], data, ctrl, EVAL_IDLE_SEC)
+        try:
+            t_bound = time.perf_counter() - t0
+            _reset_launches()
+            t1 = time.perf_counter()
+            rc, out = cli_run(["replay", cap, "--role", "recv", "--device",
+                               device, "--ui", "none"], ports=(data, ctrl))
+            wall_recv = time.perf_counter() - t1
+            launches_two = _read_launches()
+            eval_out, _ = proc.communicate(timeout=EVAL_IDLE_SEC + 60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for line in eval_out.splitlines():
+            log("      eval: " + line)
+        sent = int(re.search(r"(\d+) epochs sent", out).group(1))
+        got = re.search(r"(\d+) epochs received", eval_out)
+        got = int(got.group(1)) if got else -1
+        ephs = sorted(io.load_ephemerides(eph))
+        pos_two = _positions(two)
+        err = float(np.linalg.norm(pos_two[:, 1:].mean(axis=0)
+                                   - scn.rec_ecef))
+        log(f"[10b] two processes: eval rc {proc.returncode} (bound its "
+            f"port after {t_bound:.2f} s); recv rc {rc}, wall "
+            f"{wall_recv:.3f} s for {n_blocks * cfg.block_sec:.1f} s of IQ "
+            f"= {n_blocks * cfg.block_sec / wall_recv:.2f}x realtime "
+            f"(in-process {wall_both:.3f} s); epochs sent {sent}, received "
+            f"{got}, lost {sent - got}; PRNs {printed_prns(out)}; "
+            f"ephemerides {ephs}; {len(pos_two)} fixes, mean fix "
+            f"{err:.3f} m from truth; launches {launches_two}")
+        if proc.returncode != 0 or rc != 0:
+            raise AssertionError(f"[10b] eval rc {proc.returncode}, recv "
+                                 f"rc {rc}")
+        if printed_prns(out) != truth or len(ephs) < 4 or not err < 8.0:
+            raise AssertionError("[10b] PRNs, ephemerides or fix bar "
+                                 "missed")
+        _check_launches("10b recv", launches_two, steps)
+        if got != sent:
+            raise AssertionError(f"[10b] {sent - got} of {sent} epochs lost")
+        if pos_two.shape != pos_one.shape:
+            raise AssertionError(f"[10b] {len(pos_two)} fixes over UDP, "
+                                 f"{len(pos_one)} in process")
+        d_pos = float(np.abs(pos_two - pos_one).max())
+        if not d_pos <= 1e-3:
+            raise AssertionError(f"[10b] positions differ by {d_pos:.3g} m "
+                                 "from the in-process run")
+        log(f"[10b] positions equal the in-process run's epoch by epoch "
+            f"(max diff {d_pos:.3g} m)")
+        res["two_process"] = dict(
+            launches=launches_two, wall_s=wall_recv, wall_in_process_s=wall_both,
+            rtf=n_blocks * cfg.block_sec / wall_recv,
+            rtf_in_process=n_blocks * cfg.block_sec / wall_both,
+            epochs_sent=sent, epochs_received=got, fixes=len(pos_two),
+            err_m=err, max_pos_diff_m=d_pos)
+
+        # 10c
+        rc, out = cli_run(["epochs", ep_path, "--ui", "none", "--out",
+                           three])
+        pos_three = _positions(three)
+        if rc != 0 or not np.array_equal(pos_three, pos_one):
+            raise AssertionError("[10c] `epochs` positions differ from the "
+                                 "in-process run's")
+        log(f"[10c] epochs of {len(records)} recorded epochs: "
+            f"{len(pos_three)} positions equal to the in-process run's")
+
+        # 10d
+        n_live = int(LIVE_SEC / cfg.block_sec)
+        live = [np.ascontiguousarray(b) for b in _native.unpack_iq(
+            words[:n_live])]
+        rec_iq = os.path.join(tmp, "live.bin")
+        ep_live = os.path.join(tmp, "live.pickle")
+        _reset_launches()
+        with stand_in_rtlsdr(live):
+            rc, out = cli_run(["live", "--max-sec", str(LIVE_SEC),
+                               "--device", device, "--ui", "none",
+                               "--record-iq", rec_iq, "--record-epochs",
+                               ep_live])
+        launches_live = _read_launches()
+        sources_blocks = list(replay_blocks(rec_iq, cfg))
+        same = len(sources_blocks) == n_live and all(
+            np.array_equal(a, b) for a, b in zip(sources_blocks, live))
+        log(f"[10d] live with a stand-in rtlsdr, {LIVE_SEC:.0f} s: rc {rc}, "
+            f"PRNs {printed_prns(out)}, launches {launches_live}, "
+            f"--record-iq read back {len(sources_blocks)} blocks "
+            f"{'equal' if same else 'DIFFERENT'}")
+        if rc != 0 or printed_prns(out) != truth or not same:
+            raise AssertionError("[10d] live run failed its bars")
+        _check_launches("10d", launches_live, _want_steps(cfg, n_live))
+        res["live"] = dict(launches=launches_live)
+    return res
+
+
+def run_cheap_ncyc64(cfg, dev) -> dict:
+    """Phase 10e: phase 3's cheap checks at n_cyc 64 (65 slots, the
+    kernel's four-slot build) with 11 and 32 channels: 8 chained K-steps
+    and the crafted case, with phase 3's tolerances; the wrapper and
+    plain times and the bound at 11 channels; then the wrapper and plain
+    times and the bound at the 16.384 MS/s configuration (cs 16384,
+    n_cyc 8, corr_avg 4, 11 channels)."""
+    from gps_sdr_tpu_torch.kernel_profile import wide_config
+
+    out = {}
+    c64 = cfg.replace(n_cyc=64)
+    for n_ch in (11, 32):
+        st, chunk, codes, ffts = make_case(c64, n_ch, c64.no_sec, 5 + n_ch,
+                                           dev, on_card=True)
+        c = check_cheap_chain(c64, st, chunk, codes, ffts,
+                              timing=n_ch == 11)
+        cc = check_cheap_case(c64, n_ch, 3, dev)
+        out[f"ncyc64_ch{n_ch}"] = dict(c, crafted=cc)
+        log(f"[10e] cheap kernel at n_cyc 64, {n_ch} channels, 8 chained "
+            f"steps: {json.dumps(c)}; crafted case: {json.dumps(cc)}")
+    wide = wide_config(cfg)
+    st, chunk, codes, ffts = make_case(wide, wide.max_sat,
+                                       2 * wide.blocks_per_step, 7, dev,
+                                       on_card=True)
+    w = check_cheap_chain(wide, st, chunk, codes, ffts, timing=True)
+    out["wide_ch11"] = w
+    log(f"[10e] cheap kernel at cs 16384, n_cyc 8, 11 channels: "
+        f"{json.dumps(w)}")
+    return out
+
+
+# --------------------------------------------------------------------------
 
 
 def _kernel_entry(name, source, replaces, launches, res) -> dict:
@@ -1783,8 +2353,8 @@ def main() -> int:
               "NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from gps_sdr_tpu_torch import ReceiverConfig
-    from gps_sdr_tpu_torch.ops import _build, hopper_wipeoff
+    from gps_sdr_tpu_torch import ReceiverConfig, nativecore
+    from gps_sdr_tpu_torch.ops import _build, hopper_cheap, hopper_wipeoff
 
     # 0. device
     card = subprocess.run(
@@ -1797,10 +2367,15 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"[0] torch {torch.__version__} cuda {torch.version.cuda}; {name}")
 
-    # 1. build
-    libs, secs = _build.build()
+    # 1. build: the kernels (nvcc) and the host core (g++), all at once
+    jobs = {**_build.kernel_jobs(), **nativecore.host_jobs()}
+    secs = _build.compile_libraries(jobs)
     _build.load()
-    log(f"[1] built {len(libs)} kernel libraries in {secs:.1f} s")
+    for lib_name in nativecore.HOST_SOURCES:
+        nativecore.load_native_lib(lib_name)
+    libs = {name: lib for name, (_, lib) in jobs.items()}
+    log(f"[1] built {len(_build.ENTRIES)} kernel libraries and "
+        f"{len(nativecore.HOST_SOURCES)} host libraries in {secs:.1f} s")
     for lib_path in libs.values():
         log(f"    {os.path.relpath(lib_path, ROOT)}")
         ptxas = lib_path.with_suffix(".log")
@@ -1877,6 +2452,12 @@ def main() -> int:
     wb = run_wideband_slice(dev)
     log(f"[9] phase 9 took {time.perf_counter() - t9:.1f} s")
 
+    # 10. the host slice, then the cheap kernel at n_cyc 64
+    t10 = time.perf_counter()
+    hs = run_host_slice(cfg, sl.pop("scn"), sl.pop("blocks"), build_s=secs)
+    c64 = run_cheap_ncyc64(cfg, dev)
+    log(f"[10] phase 10 took {time.perf_counter() - t10:.1f} s")
+
     kernels = [
         _kernel_entry("wipeoff", "wipeoff.cu",
                       "gps_sdr_tpu/ops/pallas_kernels.py:171",
@@ -1911,8 +2492,19 @@ def main() -> int:
             entry[f"cs16384_ch{n_ch}"] = {
                 key: r[key] for key in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by")}
-    kernels[2]["shapes"] = {"n_cyc": "n_cyc + 1 <= 64 slots (8, 16, 32)",
-                            "channels": "any (S x C in one launch)"}
+    for entry in (kernels[0], kernels[2]):
+        entry["launches_two_process"] = {
+            "recv": hs["two_process"]["launches"][entry["name"]],
+            "live": hs["live"]["launches"][entry["name"]]}
+    kernels[2]["shapes"] = {
+        "n_cyc": f"n_cyc + 1 <= {hopper_cheap.MAX_SLOTS} slots (8, 16, 32, "
+                 "64)",
+        "channels": "any (S x C in one launch)"}
+    for key in ("ncyc64_ch11", "wide_ch11"):
+        kernels[2][key] = {k: c64[key][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+    kernels[2]["ncyc64_ch32"] = {"max_abs_err":
+                                 c64["ncyc64_ch32"]["max_abs_err"]}
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -31,19 +31,30 @@ noted:
   runtime/serving.py           StreamServer: S receivers on one card,
                                the stream axis in the kernels' grids
   runtime/checkpoint.py        session and server checkpoints
-  cli.py                       `python -m gps_sdr_tpu_torch replay ...`
-                               (with --input-rate), `synth`, `serve`,
-                               `snapshot`
+  runtime/transport.py         the two-process topology's UDP wire
+                               (the JAX package's pickle format)
+  runtime/buffer.py            block buffers (deque, native ring)
+  ui/plot.py                   the live matplotlib UI (imports
+                               matplotlib only when made)
+  cli.py                       every mode, role and UI of the JAX CLI:
+                               `python -m gps_sdr_tpu_torch replay ...`
+                               (with --input-rate), `synth`, `live`,
+                               `epochs`, `eval`, `serve`, `snapshot`,
+                               --role recv|eval, --ui plot
 
 The host half is the port's own copy of the JAX package's JAX-free
 modules, at the same relative paths, with their imports pointed here:
 config, models/{almanac,atmosphere,ephemeris,navmsg,orbits,pseudorange,
 scenario,simulator}, ops/{cacode,pvt}, runtime/{channelmgr,evaluator,
 trackfilter,sources}, utils/{cplist,geodesy,gpstime,io,tuplelog},
-utils/profiling (RateMeter only), ui/{headless,webmap}.  The copies
-take the numpy paths of the JAX package's native host core (its C++
-evaluator core, subframe scanner and IQ unpack are not ported).
-Importing this package loads neither JAX nor any module of gps_sdr_tpu.
+utils/profiling (RateMeter only), ui/{headless,webmap}.  The native host
+core is ported too: csrc/{evalcore,navscan,ingest}.cpp (copies of the
+JAX package's C++), built by g++ at first use (nativecore.py) and bound
+in _evalcore.py, models/_navscan.py and runtime/_native.py; the copies
+dispatch to it where the JAX package does (GSDR_EVALCORE=0 and
+GSDR_NAVSCAN=0 select the numpy paths), and a build or load that fails
+raises.  Importing this package loads neither JAX nor any module of
+gps_sdr_tpu, and builds nothing.
 """
 
 __version__ = "0.1.0"

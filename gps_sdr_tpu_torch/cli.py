@@ -1,22 +1,34 @@
 """Command-line launcher of the PyTorch port.
 
     python -m gps_sdr_tpu_torch replay capture.bin --ui headless --out run1
-    python -m gps_sdr_tpu_torch synth --sec 40 --sats 6 --device cuda
+    python -m gps_sdr_tpu_torch synth --sec 40 --sats 6 --ui plot
+    python -m gps_sdr_tpu_torch live --ui plot --ephem-cache eph.json
+    python -m gps_sdr_tpu_torch epochs run1_epochs.pickle    # fixture replay
+    python -m gps_sdr_tpu_torch replay cap.bin --role recv --udp-to 10.0.0.2
+    python -m gps_sdr_tpu_torch eval --ui plot               # other machine
     python -m gps_sdr_tpu_torch serve synth --streams 8 --save-state s.pkl
     python -m gps_sdr_tpu_torch replay hi.bin --input-rate 8192000
     python -m gps_sdr_tpu_torch snapshot cap.bin --ephem-cache e.json
         --prior-geo LAT,LON,H --tow TOW
 
-The parser, make_config, make_reporter, block_source, run_snapshot,
-_save_outputs and _arm_warm_start are copies of gps_sdr_tpu/cli.py's
-(without the plot UI, which is not ported); this module adds `--device`
-(default cuda) and runs the port's Session, or for `serve` its
-StreamServer, in process.  `replay --input-rate` decimates (and with
---input-if downconverts) a higher-rate capture through the digital
-front end on that device; `snapshot` solves a coarse-time fix from one
+Every mode, role and UI of gps_sdr_tpu/cli.py, whose parser, main
+dispatch, make_config, make_reporter, block_source, run_recv_process,
+run_eval_process, run_snapshot, _save_outputs and _arm_warm_start are
+copied here.  The modes that run a receiver (replay, synth, live, serve,
+snapshot) take `--device` (default cuda: without a GPU they raise unless
+`--device cpu` is given); `epochs` and `eval` run the evaluator only, on
+the host.  The two-process topology: `--role recv` runs the receiver
+and sends each epoch over UDP (runtime/transport.py) to `eval` (or
+`--role eval`), which solves the fixes; the receiver polls the SWEEP and
+STOP commands back, and the eval loop ends after EVAL_IDLE_SEC without
+an epoch.  `--ui plot` imports matplotlib (optional) and `live` pyrtlsdr
+(optional) only when asked for.  `replay --input-rate` decimates (and
+with --input-if downconverts) a higher-rate capture through the digital
+front end on the device; `snapshot` solves a coarse-time fix from one
 block.  A resumed run (`--resume-state`) keeps the checkpoint's config
-and continues the source at the block where the saved run stopped.
-Modes and options the port does not have yet stop with an error.
+and continues the source at the block where the saved run stopped; the
+port's `serve` does so too (unlike the JAX package's, which replays
+its source from block 0 against the resumed receivers).
 """
 
 from __future__ import annotations
@@ -29,12 +41,14 @@ import numpy as np
 
 from gps_sdr_tpu_torch.config import ReceiverConfig
 
-PORTED_MODES = ("replay", "synth", "serve", "snapshot")
+# modes that run a receiver, and so take --device
+DEVICE_MODES = ("replay", "synth", "live", "serve", "snapshot")
+# the eval loop ends after this many seconds without an epoch (and, with
+# --max-sec, this long after max_sec)
+EVAL_IDLE_SEC = 30.0
 
 
-def _parser_of_all_modes() -> argparse.ArgumentParser:
-    """gps_sdr_tpu's parser with every mode, so that a mode the port
-    lacks parses and is refused by name (see _not_ported)."""
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="gps_sdr_tpu_torch",
         description="GPS L1 C/A software receiver on PyTorch/CUDA")
@@ -207,6 +221,11 @@ def _parser_of_all_modes() -> argparse.ArgumentParser:
     p.add_argument("--n-cyc", type=int, default=32, choices=(8, 16, 32))
     p.add_argument("--height", type=float, default=None,
                    help="WGS84 height constraint [m] (4-sat fixes)")
+    for mode in DEVICE_MODES:
+        sub.choices[mode].add_argument(
+            "--device", default="cuda",
+            help="torch device: cuda (default; fails without a GPU) or "
+                 "cpu (the plain PyTorch path)")
     return ap
 
 
@@ -233,6 +252,9 @@ def make_reporter(args):
     if args.ui == "headless":
         from gps_sdr_tpu_torch.ui.headless import HeadlessReporter
         return HeadlessReporter()
+    if args.ui == "plot":
+        from gps_sdr_tpu_torch.ui.plot import PlotUI
+        return PlotUI()
     return None
 
 
@@ -291,6 +313,78 @@ def block_source(args, cfg):
     raise ValueError(args.mode)
 
 
+def _found_prns(receiver) -> list:
+    return sorted(f[1] for f in receiver.found_sats)
+
+
+def run_recv_process(args, cfg) -> int:
+    """Receiver half: DSP on --device, epochs out over UDP, the SWEEP and
+    STOP commands polled back after each epoch."""
+    from gps_sdr_tpu_torch.runtime.receiver import Receiver
+    from gps_sdr_tpu_torch.runtime.transport import EpochSender
+
+    recv = Receiver(cfg, device=args.device)
+    sender = EpochSender(host=args.udp_to)
+    n = n_dgrams = 0
+    try:
+        for epoch in recv.run(block_source(args, cfg)):
+            n_dgrams += sender.send(epoch)
+            n += 1
+            cmd = sender.poll_command()
+            if cmd == "SWEEP":
+                recv.request_sweep()
+            elif cmd == "STOP":
+                recv.stop()
+    finally:
+        sender.close()
+    print(f"receiver done: {n} epochs sent in {n_dgrams} datagrams on "
+          f"{recv.device}; acquired PRNs {_found_prns(recv)}")
+    return 0
+
+
+def run_eval_process(args, cfg) -> int:
+    """Evaluator half: epochs in over UDP, fixes and UI out.  Ends after
+    EVAL_IDLE_SEC without an epoch."""
+    from gps_sdr_tpu_torch.runtime.evaluator import Evaluator
+    from gps_sdr_tpu_torch.runtime.transport import EpochReceiver
+    from gps_sdr_tpu_torch.utils import io
+
+    preloaded = (io.load_ephemerides(args.ephem_cache)
+                 if args.ephem_cache else {})
+    ev = Evaluator(cfg, preloaded_ephem=preloaded)
+    reporter = make_reporter(args)
+    rx = EpochReceiver()
+    t0 = time.time()
+    idle = t_eval = 0.0
+    n = 0
+    try:
+        while True:
+            epoch = rx.recv()
+            if epoch is None:
+                time.sleep(0.05)
+                idle += 0.05
+                if idle > EVAL_IDLE_SEC or (
+                        args.max_sec is not None
+                        and time.time() - t0 > args.max_sec + EVAL_IDLE_SEC):
+                    break
+                continue
+            idle = 0.0
+            n += 1
+            t1 = time.perf_counter()
+            summary = ev.process(epoch)
+            t_eval += time.perf_counter() - t1
+            if reporter is not None:
+                reporter.update(epoch.frames, summary, ev)
+    except KeyboardInterrupt:
+        rx.request_stop()
+    finally:
+        rx.close()
+    _save_outputs(args, cfg, ev)
+    print(f"evaluator done: {n} epochs received, {len(ev.positions)} "
+          f"fixes, {t_eval:.3f} s evaluating")
+    return 0
+
+
 def _save_outputs(args, cfg, ev) -> None:
     from gps_sdr_tpu_torch.utils import io
 
@@ -335,40 +429,18 @@ def _arm_warm_start(spec: str, session) -> None:
           else "warm start: too few predicted sats - full sweep")
 
 
-def build_parser() -> argparse.ArgumentParser:
-    ap = _parser_of_all_modes()
-    sub = next(a for a in ap._actions
-               if isinstance(a, argparse._SubParsersAction))
-    for mode in PORTED_MODES:
-        sub.choices[mode].add_argument(
-            "--device", default="cuda",
-            help="torch device: cuda (default; fails without a GPU) or "
-                 "cpu (the plain PyTorch path)")
-    return ap
-
-
-def _not_ported(args) -> str | None:
-    """Why `args` asks for something the port does not have, or None."""
-    if args.mode not in PORTED_MODES:
-        return f"mode {args.mode!r} is not yet ported to PyTorch"
-    if args.mode in ("serve", "snapshot"):
-        return None
-    if args.role != "both":
-        return f"--role {args.role} is not yet ported to PyTorch"
-    if args.ui == "plot":
-        return "--ui plot is not yet ported to PyTorch"
-    return None
-
-
 def run_in_process(args, cfg) -> int:
-    """Single-process topology over the port's Session."""
+    """Single-process topology over the port's Session (`epochs` runs its
+    evaluator only; its receiver, which never runs, lives on the
+    CPU)."""
     from gps_sdr_tpu_torch.runtime.session import Session
 
+    device = getattr(args, "device", "cpu")
     if args.resume_state:
         from gps_sdr_tpu_torch.runtime.checkpoint import load_session
         session = load_session(args.resume_state,
                                reporter=make_reporter(args),
-                               device=args.device)
+                               device=device)
         session.record_epochs_to = args.record_epochs
         session.ephem_cache_path = args.ephem_cache
         # the checkpoint's config governs the resumed run: the restored
@@ -384,7 +456,7 @@ def run_in_process(args, cfg) -> int:
             print(f"resume: continuing at stream block "
                   f"{args.start_stream}")
     else:
-        session = Session(cfg, device=args.device,
+        session = Session(cfg, device=device,
                           ephem_cache_path=args.ephem_cache,
                           almanac_cache_path=args.almanac_cache,
                           record_epochs_to=args.record_epochs,
@@ -392,13 +464,21 @@ def run_in_process(args, cfg) -> int:
     if args.warm_start:
         _arm_warm_start(args.warm_start, session)
     n_prior = len(session.summaries)
-    t0 = time.time()
-    summary = session.run_source(block_source(args, cfg))
-    wall = time.time() - t0
-    sec = (len(session.summaries) - n_prior) * cfg.no_sec * cfg.block_sec
-    print(f"processed {sec:.1f} s of stream in {wall:.1f} s "
-          f"({sec / max(wall, 1e-9):.1f}x realtime) on "
-          f"{session.receiver.device}")
+    if args.mode == "epochs":
+        from gps_sdr_tpu_torch.utils.io import load_epoch_records
+        summary = session.run_epoch_records(load_epoch_records(args.path))
+        if args.then_udp:
+            summary = session.run_udp_followup(max_sec=args.max_sec)
+    else:
+        t0 = time.time()
+        summary = session.run_source(block_source(args, cfg))
+        wall = time.time() - t0
+        sec = (len(session.summaries) - n_prior) * cfg.no_sec \
+            * cfg.block_sec
+        print(f"processed {sec:.1f} s of stream in {wall:.1f} s "
+              f"({sec / max(wall, 1e-9):.1f}x realtime) on "
+              f"{session.receiver.device}; acquired PRNs "
+              f"{_found_prns(session.receiver)}")
     if args.save_state:
         from gps_sdr_tpu_torch.runtime.checkpoint import save_session
         save_session(session, args.save_state)
@@ -613,16 +693,22 @@ def run_serve(args) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    why = _not_ported(args)
-    if why is not None:
-        print(f"error: {why}; use `python -m gps_sdr_tpu` for it",
-              file=sys.stderr)
-        return 2
-    if args.mode == "serve":
-        return run_serve(args)
     if args.mode == "snapshot":
         return run_snapshot(args)
-    return run_in_process(args, make_config(args))
+    if args.mode == "serve":
+        return run_serve(args)
+    cfg = make_config(args)
+    if args.mode == "eval" or args.role in ("eval", "recv"):
+        if args.save_state or args.resume_state:
+            print("error: --save-state/--resume-state are only "
+                  "supported in the single-process topology "
+                  "(--role both)", file=sys.stderr)
+            return 2
+    if args.mode == "eval" or args.role == "eval":
+        return run_eval_process(args, cfg)
+    if args.role == "recv":
+        return run_recv_process(args, cfg)
+    return run_in_process(args, cfg)
 
 
 if __name__ == "__main__":

@@ -8,9 +8,23 @@
 // _edge_scan, amplitude/sigma, _pll), block after block.
 //
 // One 96-thread CTA per channel, three warps with separate work.  Lanes
-// own means slots j and j + 32, so one warp covers every n_cyc + 1 <= 64
-// (the product's 33 slots put the last block edge in lane 0's second
-// slot).
+// own H means slots, j + 32 h for h < H, so one warp covers n_cyc + 1 <=
+// 32 H slots: the kernel is built for H = 2 (n_cyc + 1 <= 64; the
+// product's 33 slots put the last block edge in lane 0's second slot) and
+// H = 4 (n_cyc 64's 65 slots, up to 128), and the launcher takes the
+// smaller that fits.  The H = 2 build is the two-slot kernel unchanged:
+// its sums run in the same order, so its bits do not depend on H = 4.
+//   The H = 4 build also rounds the PLL's inputs as the plain version's
+// PyTorch ops round them on the card (div_by_scalar and the H == 4
+// branches): the means, the slot times, the retune angle and its sin and
+// cos, the rotation and the phase and frequency updates, one rounding an
+// op, a division by a scalar as a multiply by its reciprocal, and the
+// complex multiply's one contraction; and it sums the phases and the df
+// ring in double, rounded once, as the plain version does
+// (plain_phase_sums).  A 64 ms block doubles the unlocked PLL's gain a
+// block (g pi t_blk = 2), so one rounding of difference in the rotated
+// means of a noise-led channel, pulled by hundreds of Hz, grew block
+// after block past the df ring's tolerance (cheap_trace.py).
 //   * Warps 0 and 2 first copy the step's inputs (head, seg, wipe, ~2 KB
 //     a channel) into shared memory and form every block's slot means
 //     before the retune rotation, one (block, slot) a thread: carry
@@ -102,9 +116,15 @@ struct CheapArgs {
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxSlots = 64;  // two slots per lane
+constexpr int kMaxSlots = 128;  // four slots per lane
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kTwoPi = 6.28318530717958647692f;
+
+// The plain version's rounding (the H = 4 build): a / b for a scalar b as
+// a * (1 / b), as PyTorch divides a tensor by a scalar on the card.
+__device__ __forceinline__ float div_by_scalar(float a, float b) {
+  return __fmul_rn(a, __fdiv_rn(1.f, b));
+}
 
 __device__ __forceinline__ int pmod(int a, int n) {
   const int r = a % n;
@@ -120,6 +140,11 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+__device__ __forceinline__ double warp_sum_d(double v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
 // inclusive max-scan over the 32 lanes
 __device__ __forceinline__ int scan_max(int v, int lane) {
   for (int o = 1; o < 32; o <<= 1) {
@@ -129,15 +154,17 @@ __device__ __forceinline__ int scan_max(int v, int lane) {
   return v;
 }
 
-// The value of slot r - 1 for lane's slots r = lane (h = 0) and
-// lane + 32 (h = 1); slot -1 is `before`.
-__device__ __forceinline__ void prev_slot(float v0, float v1, float before,
-                                          int lane, float& p0, float& p1) {
-  const float u0 = __shfl_up_sync(kFull, v0, 1);
-  const float u1 = __shfl_up_sync(kFull, v1, 1);
-  const float last0 = __shfl_sync(kFull, v0, 31);
-  p0 = lane == 0 ? before : u0;
-  p1 = lane == 0 ? last0 : u1;
+// The value of slot r - 1 for lane's slots r = lane + 32 h; slot -1 is
+// `before`.
+template <int H>
+__device__ __forceinline__ void prev_slot(const float (&v)[H], float before,
+                                          int lane, float (&p)[H]) {
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    const float u = __shfl_up_sync(kFull, v[h], 1);
+    const float last = h == 0 ? before : __shfl_sync(kFull, v[h - 1], 31);
+    p[h] = lane == 0 ? last : u;
+  }
 }
 
 // dst[i] = src[i] for i < n, by the warp, four loads in flight a lane
@@ -198,9 +225,9 @@ __device__ int copy_ring(int8_t* dst, const int8_t* src, int n, int lane) {
 struct Smem {          // the CTA's dynamic shared memory
   float2* seg;         // [K][n_cyc] segment sums
   float2* head;        // [K] head sums
-  float2* mean;        // [K][64] slot means before the retune rotation
-  float* t_m;          // [K][64] slot mid-times, s
-  float2* rot;         // [K][64] slot means after it (warp 0 -> warp 2)
+  float2* mean;        // [K][32 H] slot means before the retune rotation
+  float* t_m;          // [K][32 H] slot mid-times, s
+  float2* rot;         // [K][32 H] slot means after it (warp 0 -> warp 2)
   int* wipe;           // [K]
   int* n_valid;        // [K] valid slots
   int* locked;         // [K] lock state at the block's start (0 -> 2)
@@ -210,15 +237,16 @@ struct Smem {          // the CTA's dynamic shared memory
   int8_t* ring;        // [hist] correlation ring             (warp 1)
 };
 
-// Lay out the dynamic shared memory from `base` (every array on a 16-byte
-// boundary); returns its size.  m may be null (size only).
-__host__ __device__ size_t carve(const CheapArgs& a, unsigned char* base,
-                                 Smem* m) {
-  const size_t k = a.k;
+// Lay out the dynamic shared memory from `base` for `slots` = 32 H slots a
+// block (every array on a 16-byte boundary); returns its size.  m may be
+// null (size only).
+__host__ __device__ size_t carve(const CheapArgs& a, int slots,
+                                 unsigned char* base, Smem* m) {
+  const size_t k = a.k, ns = slots;
   const size_t bytes[] = {
       sizeof(float2) * k * a.n_cyc, sizeof(float2) * k,
-      sizeof(float2) * k * kMaxSlots, sizeof(float) * k * kMaxSlots,
-      sizeof(float2) * k * kMaxSlots, sizeof(int) * k, sizeof(int) * k,
+      sizeof(float2) * k * ns, sizeof(float) * k * ns,
+      sizeof(float2) * k * ns, sizeof(int) * k, sizeof(int) * k,
       sizeof(int) * k, sizeof(int) * k, sizeof(int) * k,
       sizeof(float) * a.no_sec, (size_t)a.hist};
   size_t off[12], n = 0;
@@ -295,8 +323,10 @@ __device__ void corr_ring_warp(const CheapArgs& a, const Smem& m, int c,
 // (_means_from_sums), blocks h2, h2 + 2, ...: they depend on the inputs
 // and the carry only, and the carry of block b is the state's (b = 0) or
 // block b - 1's tail.
+template <int H>
 __device__ void means_before_rotation(const CheapArgs& a, const Smem& m,
                                       int c, int h2, int lane) {
+  constexpr int S = 32 * H;
   const int K = a.k, n_cyc = a.n_cyc, sl = n_cyc + 1, cs = a.cs;
   const int t = 32 * h2 + lane;
   const float2* sg = a.seg + (size_t)c * K * n_cyc;
@@ -328,7 +358,7 @@ __device__ void means_before_rotation(const CheapArgs& a, const Smem& m,
     const int cnt0 = carry_cnt + w;
     const bool v0 = cnt0 > 0;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < H; ++h) {
       const int r = lane + 32 * h;
       if (r < sl) {
         // compaction when slot 0 is empty
@@ -338,18 +368,30 @@ __device__ void means_before_rotation(const CheapArgs& a, const Smem& m,
         if (src == 0) {
           const float2 hd = m.head[b];
           const float d = (float)(cnt0 > 1 ? cnt0 : 1);
-          re = (carry.x + hd.x) / d;
-          im = (carry.y + hd.y) / d;
+          if constexpr (H == 4) {    // a complex / real divides as 1 / d
+            re = div_by_scalar(carry.x + hd.x, d);
+            im = div_by_scalar(carry.y + hd.y, d);
+          } else {
+            re = (carry.x + hd.x) / d;
+            im = (carry.y + hd.y) / d;
+          }
           st = -carry_cnt;
         } else {
           const float2 sgv = m.seg[b * n_cyc + (src - 1)];
-          re = sgv.x / (float)cs;
-          im = sgv.y / (float)cs;
+          if constexpr (H == 4) {
+            re = div_by_scalar(sgv.x, (float)cs);
+            im = div_by_scalar(sgv.y, (float)cs);
+          } else {
+            re = sgv.x / (float)cs;
+            im = sgv.y / (float)cs;
+          }
           st = w + cs * (src - 1);
         }
-        m.mean[b * kMaxSlots + r] = make_float2(re, im);
-        m.t_m[b * kMaxSlots + r] =
-            ((float)st + 0.5f * (float)cs) / a.sample_rate;
+        m.mean[b * S + r] = make_float2(re, im);
+        m.t_m[b * S + r] =
+            H == 4 ? div_by_scalar((float)st + 0.5f * (float)cs,
+                                   a.sample_rate)
+                   : ((float)st + 0.5f * (float)cs) / a.sample_rate;
         a.edge_local[((size_t)c * K + b) * sl + r] = st;
       }
     }
@@ -358,34 +400,90 @@ __device__ void means_before_rotation(const CheapArgs& a, const Smem& m,
   pair_sync();
 }
 
+// The H = 4 build's phase and df sums as the plain version forms them:
+// per slot the unwrapped phase ph + pi * csum (csum the running sum of the
+// -sign(d) steps, over the row and the rows before) rounded as its ops
+// round it, then the sums over the valid slots, the tail [t0, n_valid)
+// and the df ring in double, each rounded once to float, as the plain
+// version sums them, so that the order of the sums does not show.
+template <int H>
+__device__ void plain_phase_sums(const CheapArgs& a, const Smem& m,
+                                 const float (&ph)[H], const float (&pp)[H],
+                                 int n_valid, int t0, int df_cnt, int lane,
+                                 float& phase_dev, float& phase_offset,
+                                 float& dsum_f, float& mean_df) {
+  int carry = 0;
+  double dev = 0.0, tail = 0.0;
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    const int r = lane + 32 * h;
+    const float d = ph[h] - pp[h];
+    int csum = (r > 0 && r < n_valid && fabsf(d) > a.phase_jump)
+                   ? (d > 0.f ? -1 : 1) : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(kFull, csum, o);
+      if (lane >= o) csum += u;
+    }
+    csum += carry;
+    carry = __shfl_sync(kFull, csum, 31);
+    if (r < n_valid) {
+      const double u = __fadd_rn(ph[h], __fmul_rn((float)csum, kPi));
+      dev += u;
+      if (r >= t0) tail += u;
+    }
+  }
+  double dsum = 0.0;
+  for (int i = lane; i < a.no_sec; i += 32) dsum += m.df[i];
+  dev = warp_sum_d(dev);
+  tail = warp_sum_d(tail);
+  dsum_f = (float)warp_sum_d(dsum);
+  const int n_tail = n_valid - t0;
+  phase_dev = __fdiv_rn((float)dev, (float)(n_valid > 1 ? n_valid : 1));
+  phase_offset = __fdiv_rn((float)tail, (float)(n_tail > 1 ? n_tail : 1));
+  mean_df = __fdiv_rn(dsum_f, (float)(df_cnt > 1 ? df_cnt : 1));
+}
+
 // Warp 0: retune rotation, arctan and the PLL (_pll), block after block;
 // it publishes each block's rotated means and lock state to warp 2.
+template <int H>
 __device__ void pll_warp(const CheapArgs& a, const Smem& m, int c,
                          int lane) {
+  constexpr int S = 32 * H;
   const int K = a.k, n_cyc = a.n_cyc, sl = n_cyc + 1, cs = a.cs;
   const int no_sec = a.no_sec;
   warp_copy(m.df, a.in.df_buf + (size_t)c * no_sec, no_sec, lane);
   bool locked = a.in.locked[c] != 0;
   int df_cnt = a.in.df_cnt[c], df_idx = a.in.df_idx[c];
-  means_before_rotation(a, m, c, 0, lane);
+  means_before_rotation<H>(a, m, c, 0, lane);
 
   float dphi = 0.f, df_sum = 0.f;
   for (int b = 0; b < K; ++b) {
     const size_t cb = (size_t)c * K + b;
     const int n_valid = m.n_valid[b];
-    float mr[2], mi[2], ph[2];
+    float mr[H], mi[H], ph[H];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < H; ++h) {
       const int r = lane + 32 * h;
       mr[h] = mi[h] = ph[h] = 0.f;
       if (r < sl) {
-        const float2 mv = m.mean[b * kMaxSlots + r];
-        const float ang = dphi + kTwoPi * df_sum * m.t_m[b * kMaxSlots + r];
+        const float2 mv = m.mean[b * S + r];
         float sn, cn;
-        sincosf(ang, &sn, &cn);
-        mr[h] = mv.x * cn + mv.y * sn;          // mean * exp(-i ang)
-        mi[h] = mv.y * cn - mv.x * sn;
-        m.rot[b * kMaxSlots + r] = make_float2(mr[h], mi[h]);
+        if constexpr (H == 4) {
+          // dphi + (2 pi df_sum) t, sin and cos, and mean * (cos - i sin)
+          // as the plain version's ops round them
+          const float ang = __fadd_rn(
+              dphi, __fmul_rn(__fmul_rn(kTwoPi, df_sum), m.t_m[b * S + r]));
+          sn = sinf(ang);
+          cn = cosf(ang);
+          mr[h] = __fmaf_rn(mv.x, cn, __fmul_rn(mv.y, sn));
+          mi[h] = __fmaf_rn(mv.x, -sn, __fmul_rn(mv.y, cn));
+        } else {
+          const float ang = dphi + kTwoPi * df_sum * m.t_m[b * S + r];
+          sincosf(ang, &sn, &cn);
+          mr[h] = mv.x * cn + mv.y * sn;        // mean * exp(-i ang)
+          mi[h] = mv.y * cn - mv.x * sn;
+        }
+        m.rot[b * S + r] = make_float2(mr[h], mi[h]);
         ph[h] = (mr[h] != 0.f) ? atanf(mi[h] / mr[h])
                                : fsign(mi[h]) * (kPi / 2.f);
       }
@@ -399,43 +497,51 @@ __device__ void pll_warp(const CheapArgs& a, const Smem& m, int c,
     // sum of the -sign(d) steps, so its sums over the valid slots and the
     // tail [t0, n_valid) are the phase sums plus pi times integer sums
     // weighted by how many summed slots each step precedes
-    float pp[2];
-    prev_slot(ph[0], ph[1], 0.f, lane, pp[0], pp[1]);
+    float pp[H];
+    prev_slot<H>(ph, 0.f, lane, pp);
     const int t0 = max(n_valid - a.offset_avg, 0);
-    float dev = 0.f, tail = 0.f;
-    int dev_k = 0, tail_k = 0;
+    float phase_dev, phase_offset, dsum, mean_df;
+    if constexpr (H == 4) {
+      plain_phase_sums<H>(a, m, ph, pp, n_valid, t0, df_cnt, lane,
+                          phase_dev, phase_offset, dsum, mean_df);
+    } else {
+      float dev = 0.f, tail = 0.f;
+      int dev_k = 0, tail_k = 0;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = lane + 32 * h;
-      if (r < n_valid) {
-        const float d = ph[h] - pp[h];
-        const int step = (r > 0 && fabsf(d) > a.phase_jump)
-                             ? (d > 0.f ? -1 : 1) : 0;
-        dev += ph[h];
-        dev_k += step * (n_valid - r);
-        tail_k += step * (n_valid - max(r, t0));
-        if (r >= t0) tail += ph[h];
+      for (int h = 0; h < H; ++h) {
+        const int r = lane + 32 * h;
+        if (r < n_valid) {
+          const float d = ph[h] - pp[h];
+          const int step = (r > 0 && fabsf(d) > a.phase_jump)
+                               ? (d > 0.f ? -1 : 1) : 0;
+          dev += ph[h];
+          dev_k += step * (n_valid - r);
+          tail_k += step * (n_valid - max(r, t0));
+          if (r >= t0) tail += ph[h];
+        }
       }
-    }
-    float dsum = 0.f;
-    for (int i = lane; i < no_sec; i += 32) dsum += m.df[i];
-    dev_k = __reduce_add_sync(kFull, dev_k);
-    tail_k = __reduce_add_sync(kFull, tail_k);
-    dev = warp_sum(dev);
-    tail = warp_sum(tail);
-    dsum = warp_sum(dsum);
+      dsum = 0.f;
+      for (int i = lane; i < no_sec; i += 32) dsum += m.df[i];
+      dev_k = __reduce_add_sync(kFull, dev_k);
+      tail_k = __reduce_add_sync(kFull, tail_k);
+      dev = warp_sum(dev);
+      tail = warp_sum(tail);
+      dsum = warp_sum(dsum);
 
-    const float nv = (float)(n_valid > 1 ? n_valid : 1);
-    const int n_tail = n_valid - t0;
-    const float phase_dev = (dev + (float)dev_k * kPi) / nv;
-    const float phase_offset =
-        (tail + (float)tail_k * kPi) / (float)(n_tail > 1 ? n_tail : 1);
-    const float mean_df = dsum / (float)(df_cnt > 1 ? df_cnt : 1);
+      const float nv = (float)(n_valid > 1 ? n_valid : 1);
+      const int n_tail = n_valid - t0;
+      phase_dev = (dev + (float)dev_k * kPi) / nv;
+      phase_offset =
+          (tail + (float)tail_k * kPi) / (float)(n_tail > 1 ? n_tail : 1);
+      mean_df = dsum / (float)(df_cnt > 1 ? df_cnt : 1);
+    }
     float df;
     __syncwarp();                         // df ring read before written
     if (locked) {
-      df = fminf(fmaxf(a.gain_locked * phase_dev + mean_df, -a.max_df),
-                 a.max_df);
+      const float pulled = H == 4
+          ? __fadd_rn(__fmul_rn(a.gain_locked, phase_dev), mean_df)
+          : a.gain_locked * phase_dev + mean_df;
+      df = fminf(fmaxf(pulled, -a.max_df), a.max_df);
       const int pos = df_cnt < no_sec ? df_cnt : pmod(df_idx, no_sec);
       if (lane == 0) m.df[pos] = df;
       df_idx = df_cnt < no_sec ? df_idx : pmod(df_idx + 1, no_sec);
@@ -450,7 +556,11 @@ __device__ void pll_warp(const CheapArgs& a, const Smem& m, int c,
     locked = locked || fabsf(phase_dev) < a.lock_threshold;
     if (lane == 0) a.locked_seq[cb] = locked ? 1 : 0;
     // virtual phase advance of the intra-step retune over this block
-    dphi = dphi + phase_offset + kTwoPi * df_sum * a.t_blk;
+    if constexpr (H == 4)
+      dphi = __fadd_rn(__fadd_rn(dphi, phase_offset),
+                       __fmul_rn(__fmul_rn(kTwoPi, df_sum), a.t_blk));
+    else
+      dphi = dphi + phase_offset + kTwoPi * df_sum * a.t_blk;
     df_sum = df_sum + df;
   }
 
@@ -470,14 +580,16 @@ __device__ void pll_warp(const CheapArgs& a, const Smem& m, int c,
 
 // Warp 2: the bit-edge scan (_edge_scan, prefix form) and amplitude /
 // sigma of each block as warp 0 publishes it.
+template <int H>
 __device__ void edge_warp(const CheapArgs& a, const Smem& m, int c,
                           int lane) {
+  constexpr int S = 32 * H;
   const int K = a.k, sl = a.n_cyc + 1;
   int sign0 = a.in.sign0[c], prev_sign = a.in.prev_sign[c];
   float prev_signal = a.in.prev_signal[c];
   int ms_time = a.in.ms_time[c];
   float std_dev = a.in.std_dev[c];
-  means_before_rotation(a, m, c, 1, lane);
+  means_before_rotation<H>(a, m, c, 1, lane);
 
   const unsigned lt_mask = (1u << lane) - 1u;
   for (int b = 0; b < K; ++b) {
@@ -487,12 +599,11 @@ __device__ void edge_warp(const CheapArgs& a, const Smem& m, int c,
     __threadfence_block();
     const int n_valid = m.n_valid[b];
     const bool locked = m.locked[b] != 0;
-    float mr[2], mi[2];
+    float mr[H], mi[H];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < H; ++h) {
       const int r = lane + 32 * h;
-      const float2 v = r < sl ? m.rot[b * kMaxSlots + r]
-                              : make_float2(0.f, 0.f);
+      const float2 v = r < sl ? m.rot[b * S + r] : make_float2(0.f, 0.f);
       mr[h] = v.x;
       mi[h] = v.y;
     }
@@ -502,13 +613,13 @@ __device__ void edge_warp(const CheapArgs& a, const Smem& m, int c,
     const bool chain = sign0 != 0;
     const int msign0 = __shfl_sync(kFull, mr[0], 0) >= 0.f ? 1 : -1;
     const int base = chain ? prev_sign : msign0;
-    float ps[2];
-    prev_slot(mr[0], mr[1], prev_signal, lane, ps[0], ps[1]);
-    bool dor[2], cand[2];
-    int key[2], spm[2];
+    float ps[H];
+    prev_slot<H>(mr, prev_signal, lane, ps);
+    bool dor[H], cand[H];
+    int key[H], spm[H];
     float sm = 0.f, sm2 = 0.f;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < H; ++h) {
       const int r = lane + 32 * h;
       dor[h] = (r < n_valid) && locked;
       const int ms = mr[h] >= 0.f ? 1 : -1;
@@ -522,23 +633,26 @@ __device__ void edge_warp(const CheapArgs& a, const Smem& m, int c,
       sm += r < n_valid ? mag : 0.f;
       sm2 += r < n_valid ? mag * mag : 0.f;
     }
-    // exclusive max-scan of the keys over the 64 slots
-    const int inc0 = scan_max(key[0], lane);
-    const int inc1 = scan_max(key[1], lane);
-    const int tot0 = __shfl_sync(kFull, inc0, 31);
-    const int up0 = __shfl_up_sync(kFull, inc0, 1);
-    const int up1 = __shfl_up_sync(kFull, inc1, 1);
-    const int excl[2] = {lane == 0 ? 0 : up0, max(tot0, lane == 0 ? 0 : up1)};
-    const int cum = max(tot0, __shfl_sync(kFull, inc1, 31));
-    // n_do before each slot: ballot + popc prefix count
-    const unsigned bal0 = __ballot_sync(kFull, dor[0]);
-    const unsigned bal1 = __ballot_sync(kFull, dor[1]);
-    const int n0 = __popc(bal0);
-    const int n_do = n0 + __popc(bal1);
-    const int before[2] = {__popc(bal0 & lt_mask),
-                           n0 + __popc(bal1 & lt_mask)};
+    // exclusive max-scan of the keys over the 32 H slots (keys are >= 0):
+    // each row's lane scan, after the maximum of the rows before it
+    int excl[H], cum = 0;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < H; ++h) {
+      const int inc = scan_max(key[h], lane);
+      const int up = __shfl_up_sync(kFull, inc, 1);
+      excl[h] = max(cum, lane == 0 ? 0 : up);
+      cum = max(cum, __shfl_sync(kFull, inc, 31));
+    }
+    // n_do before each slot: ballot + popc prefix count
+    int before[H], n_do = 0;
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      const unsigned bal = __ballot_sync(kFull, dor[h]);
+      before[h] = n_do + __popc(bal & lt_mask);
+      n_do += __popc(bal);
+    }
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
       const int r = lane + 32 * h;
       if (r < sl) {
         const int pre = excl[h] > 0 ? ((excl[h] & 1) ? 1 : -1) : base;
@@ -549,11 +663,15 @@ __device__ void edge_warp(const CheapArgs& a, const Smem& m, int c,
     }
     const bool has = n_do > 0;
     const int last = has ? n_do - 1 : 0;
-    const float l0 = __shfl_sync(kFull, mr[0], last & 31);
-    const float l1 = __shfl_sync(kFull, mr[1], last & 31);
+    float lv = 0.f;                      // the real part at slot `last`
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      const float l = __shfl_sync(kFull, mr[h], last & 31);
+      if (last >> 5 == h) lv = l;
+    }
     sign0 = (has && !chain) ? msign0 : sign0;
     prev_sign = has ? (cum > 0 ? ((cum & 1) ? 1 : -1) : base) : prev_sign;
-    prev_signal = has ? (last < 32 ? l0 : l1) : prev_signal;
+    prev_signal = has ? lv : prev_signal;
     ms_time += n_do;
 
     // amplitude / sigma
@@ -576,17 +694,31 @@ __device__ void edge_warp(const CheapArgs& a, const Smem& m, int c,
   }
 }
 
+template <int H>
 __global__ void __launch_bounds__(96) cheap_kernel(CheapArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   Smem m;
-  carve(a, smem, &m);
+  carve(a, 32 * H, smem, &m);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (warp == 0)
-    pll_warp(a, m, blockIdx.x, lane);
+    pll_warp<H>(a, m, blockIdx.x, lane);
   else if (warp == 1)
     corr_ring_warp(a, m, blockIdx.x, lane);
   else
-    edge_warp(a, m, blockIdx.x, lane);
+    edge_warp<H>(a, m, blockIdx.x, lane);
+}
+
+template <int H>
+int launch(const CheapArgs& a, cudaStream_t stream) {
+  const size_t smem = carve(a, 32 * H, nullptr, nullptr);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        cheap_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cheap_kernel<H><<<a.n_ch, 96, smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -595,15 +727,8 @@ extern "C" int gsdr_cheap_launch(const CheapArgs* a, void* stream) {
   if (a->n_cyc + 1 > kMaxSlots || a->k <= 0 || a->hist <= 0 ||
       a->no_sec <= 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = carve(*a, nullptr, nullptr);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        cheap_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  cheap_kernel<<<a->n_ch, 96, smem, (cudaStream_t)stream>>>(*a);
-  return (int)cudaGetLastError();
+  return a->n_cyc + 1 <= 64 ? launch<2>(*a, (cudaStream_t)stream)
+                            : launch<4>(*a, (cudaStream_t)stream);
 }
 
 extern "C" const char* gsdr_error_string(int code) {

@@ -43,7 +43,12 @@ torch.profiler (CUPTI), on one NVIDIA GPU.
      for 8 and 11 channels; wideband_slice (9c: tests/test_multipath.py's
      ray scenario synthesized on the card at 16.384 MS/s through
      Session.run_device_source, kernel 1 and cheap), as in 2, with the
-     kernels' bodies a K-step.
+     kernels' bodies a K-step;
+  6. the host slice of chip_smoke.py phase 10: ncyc64_kernels, each
+     kernel's device time a call at n_cyc 64 for 11 and 32 channels;
+     host_slice, the two-process run (phase 4's scenario as an iq8
+     capture, `--role recv` on the card, epochs over UDP to an `eval`
+     child): its wall, the device's busy share and the eval's output.
 Every slice also sums its hand-written kernels' device time.
 Prints one JSON object (also written to PATH with --out).  Fails without
 a GPU.
@@ -60,6 +65,11 @@ import sys
 import time
 
 N_SATS, SEED, NOISE = 6, 3, 0.5     # the synthetic_fix default scenario
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the host slice's iq8 capture holds the scenario's IQ times HOST_SCALE
+# (unclipped); its eval child ends after EVAL_IDLE_SEC without an epoch
+HOST_SCALE = 0.1
+EVAL_IDLE_SEC = 5.0
 
 
 def _device_times(prof) -> dict:
@@ -257,6 +267,78 @@ def slice_like_states(cfg, dev, seed=7):
         df_idx=torch.randint(0, no_sec, (n_ch,), generator=g,
                              dtype=torch.int32))
     return tracking.ChannelState(*(v.to(dev) for v in st))
+
+
+def free_udp_ports(n: int) -> list:
+    """n distinct UDP ports the OS reports free (held open together while
+    they are chosen)."""
+    import socket
+
+    socks = [socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+             for _ in range(n)]
+    try:
+        for sock in socks:
+            sock.bind(("", 0))
+        return [sock.getsockname()[1] for sock in socks]
+    finally:
+        for sock in socks:
+            sock.close()
+
+
+def udp_port_bound(port: int) -> bool:
+    """Whether some socket of this machine is bound to UDP `port` (read
+    from /proc/net/udp and udp6; binding a probe instead could take the
+    port from the process that is about to bind it)."""
+    want = f":{port:04X}"
+    for table in ("/proc/net/udp", "/proc/net/udp6"):
+        try:
+            with open(table) as f:
+                rows = f.read().splitlines()[1:]
+        except FileNotFoundError:
+            continue
+        if any(row.split()[1].endswith(want) for row in rows):
+            return True
+    return False
+
+
+def wait_until_bound(proc, port: int, timeout: float = 120.0) -> None:
+    """Wait until process `proc` has bound UDP `port`, or raise if it
+    exits first or never does."""
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < timeout:
+        if proc.poll() is not None:
+            raise AssertionError(f"eval process exited early (rc "
+                                 f"{proc.returncode}): {proc.stdout.read()}")
+        if udp_port_bound(port):
+            return
+        time.sleep(0.1)
+    raise AssertionError(f"eval process never bound UDP port {port}")
+
+
+def start_eval(argv, data_port: int, ctrl_port: int, idle_sec: float):
+    """`python -m gps_sdr_tpu_torch` with `argv` (eval or --role eval) in a
+    child process whose transport uses data_port/ctrl_port and whose eval
+    loop ends after idle_sec without an epoch; returns the Popen once the
+    child has bound data_port.  The caller kills it in a `finally`."""
+    code = ("import sys\n"
+            "from gps_sdr_tpu_torch import cli\n"
+            "from gps_sdr_tpu_torch.runtime import transport\n"
+            f"transport.DATA_PORT, transport.CTRL_PORT = {data_port}, "
+            f"{ctrl_port}\n"
+            f"cli.EVAL_IDLE_SEC = {idle_sec!r}\n"
+            f"sys.exit(cli.main({list(argv)!r}))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        wait_until_bound(proc, data_port)
+    except BaseException:
+        proc.kill()
+        proc.wait()
+        raise
+    return proc
+
 
 
 def profile_kernels(cfg, dev, reps: int = 50, stream_counts=(3, 8),
@@ -544,6 +626,91 @@ def profile_wideband_slice(cfg, dev, sec: float = CW_SEC) -> dict:
                 for name, v in res["kernels_device_us"].items()}, **res}
 
 
+def profile_ncyc64_kernels(cfg, dev) -> dict:
+    """Each kernel's device time a call at n_cyc 64 (65 slots: the cheap
+    kernel's four-slot build) for 11 and 32 channels, on random inputs
+    of 2 K-steps."""
+    c64 = cfg.replace(n_cyc=64)
+    return {f"ch{n}": profile_kernels(
+        c64.replace(max_sat=n), dev, stream_counts=(),
+        n_blocks=2 * c64.blocks_per_step) for n in (11, 32)}
+
+
+def profile_host_slice(cfg, dev, sec: float = 40.0) -> dict:
+    """The two-process topology of chip_smoke.py phase 10b: the synthetic
+    fix scenario (host IQ times HOST_SCALE in an iq8 capture) replayed by
+    `--role recv` in this process on the card, its epochs over UDP to an
+    `eval` child with the native host core.  A short in-process replay
+    warms up, one run gives the wall, a second runs under the profiler:
+    the device's busy time and its share of the unprofiled wall, and the
+    eval child's output (epochs received, evaluation seconds)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gps_sdr_tpu_torch import cli
+    from gps_sdr_tpu_torch.models.scenario import make_scenario
+    from gps_sdr_tpu_torch.runtime import _native, transport
+
+    scn = make_scenario(cfg, n_sats=N_SATS, seed=SEED,
+                        duration_sec=sec + 12.0)
+    n_blocks = int(round(sec / cfg.block_sec))
+    with tempfile.TemporaryDirectory() as tmp:
+        cap = os.path.join(tmp, "cap.bin")
+        _native.pack_iq(HOST_SCALE * synth_iq(scn, n_blocks,
+                                              4 * cfg.no_sec)).tofile(cap)
+        dev_arg = str(dev)
+
+        def run_two(profiled):
+            """(wall s, recv output, eval output, profiler or None)."""
+            data, ctrl = free_udp_ports(2)
+            proc = start_eval(["eval", "--ui", "none"], data, ctrl,
+                              EVAL_IDLE_SEC)
+            saved = transport.DATA_PORT, transport.CTRL_PORT
+            prof = (profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+                    if profiled else contextlib.nullcontext())
+            out = io.StringIO()
+            try:
+                transport.DATA_PORT, transport.CTRL_PORT = data, ctrl
+                with contextlib.redirect_stdout(out), prof:
+                    t0 = time.perf_counter()
+                    cli.main(["replay", cap, "--role", "recv", "--device",
+                              dev_arg, "--ui", "none"])
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                eval_out, _ = proc.communicate(timeout=EVAL_IDLE_SEC + 60)
+            finally:
+                transport.DATA_PORT, transport.CTRL_PORT = saved
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            return (wall, out.getvalue().strip(), eval_out.strip(),
+                    prof if profiled else None)
+
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["replay", cap, "--device", dev_arg, "--ui", "none",
+                      "--max-sec", "2"])
+        wall, recv_out, eval_out, _ = run_two(False)
+        wall_prof, _, _, prof = run_two(True)
+    times = _device_times(prof)
+    total = sum(us for us, _ in times.values())
+    top = sorted(times.items(), key=lambda kv: -kv[1][0])[:15]
+    return {"signal_s": n_blocks * cfg.block_sec, "wall_s": wall,
+            "rtf": n_blocks * cfg.block_sec / wall,
+            "wall_s_profiled": wall_prof,
+            "device_busy_s": total / 1e6,
+            "device_busy_share": total / 1e6 / wall,
+            "recv": recv_out, "eval": eval_out,
+            "kernels_device_us": {name: _family(times, name) for name in (
+                "wipeoff_kernel", "wipeoff_vpu_kernel", "cheap_kernel")},
+            "top_device_us": {k: {"us": us, "calls": n}
+                              for k, (us, n) in top}}
+
+
 def profile_serving_slice(cfg, dev, n_streams: int = 8,
                           sec: float = 40.0) -> dict:
     """The serving slice: n_streams replicas of the scenario through
@@ -627,7 +794,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only", nargs="+", default=None,
                     choices=("kernels", "replay_slice", "device_slice",
                              "serving_slice", "frontend_slice", "cw_slice",
-                             "wideband_kernels", "wideband_slice"),
+                             "wideband_kernels", "wideband_slice",
+                             "ncyc64_kernels", "host_slice"),
                     help="run only these parts (default: all)")
     args = ap.parse_args(argv)
     import torch
@@ -652,7 +820,9 @@ def main(argv=None) -> int:
              "frontend_slice": profile_frontend_slice,
              "cw_slice": profile_cw_slice,
              "wideband_kernels": profile_wideband_kernels,
-             "wideband_slice": profile_wideband_slice}
+             "wideband_slice": profile_wideband_slice,
+             "ncyc64_kernels": profile_ncyc64_kernels,
+             "host_slice": profile_host_slice}
     res = {"card": card}
     for name, fn in parts.items():
         if args.only is None or name in args.only:

@@ -217,6 +217,24 @@ class SubframeError(Exception):
     pass
 
 
+# the subframe-ID source span, handed to the native scanner so its
+# walk can apply decode_subframe's 1 <= ID <= 5 gate (one source of
+# truth: this table)
+_ID_SPAN = next((sp[0][0], sp[0][1], sp[0][2])
+                for n, sp, *_ in _COMMON if n == "ID")
+
+
+def _native_scan():
+    """The native subframe scanner (csrc/navscan.cpp), or False when
+    GSDR_NAVSCAN=0 (the numpy walk).  A scanner that cannot be built or
+    loaded raises."""
+    import os
+    if os.environ.get("GSDR_NAVSCAN", "1") == "0":
+        return False
+    from gps_sdr_tpu_torch.models._navscan import navscan
+    return navscan
+
+
 def check_and_unscramble(sub300: np.ndarray) -> np.ndarray | None:
     """Parity-check a 300-bit subframe; return 10x30 source-domain words.
 
@@ -563,6 +581,17 @@ class NavDecoder:
         Python equivalence is testable on arbitrary buffers)."""
         bits = self.bits
         out: list[dict] = []
+        scan = _native_scan()
+        if scan:
+            starts, words, final = scan(bits, _TAPS_MAT, _SEED29,
+                                        _ID_SPAN)
+            for si, wrow in zip(starts.tolist(), words):
+                sf = fields_from_source(wrow)
+                sf["ST"] = int(self.bits_st[si])
+                out.append(sf)
+            self.bits = bits[final:]
+            self.bits_st = self.bits_st[final:]
+            return out
         corr = np.correlate(bits, PREAMBLE_PM, mode="valid")
         locs = [i for i in np.nonzero(np.abs(corr) == 8)[0]]
         start = 0

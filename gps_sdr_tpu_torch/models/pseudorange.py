@@ -25,6 +25,7 @@ from gps_sdr_tpu_torch.models import orbits
 from gps_sdr_tpu_torch.models.ephemeris import (EPHEM_SF1, EPHEM_SF2,
                                                 EPHEM_SF3, EphemerisAssembler,
                                                 SatStatus)
+from gps_sdr_tpu_torch.nativecore import native_evalcore
 from gps_sdr_tpu_torch.utils.cplist import cp_arrays
 
 # the ephemeris fields orbit propagation consumes — a STATIC list, so
@@ -138,6 +139,9 @@ def ecef_mat(tow, dt, eph_mat: np.ndarray, rel_corr: bool = True):
     n = eph_mat.shape[0]
     tow = np.broadcast_to(np.asarray(tow, np.float64), (n,))
     dt = np.broadcast_to(np.asarray(dt, np.float64), (n,))
+    core = native_evalcore()
+    if core:
+        return core.ecef_batch(tow, dt, eph_mat, rel_corr)
     eph = {k: eph_mat[:, i] for i, k in enumerate(EPHEM_KEYS)}
     return orbits.ecef_coord(tow, eph, dt_from_tow=dt,
                              rel_corr=rel_corr)
@@ -271,6 +275,13 @@ class PseudorangeEngine:
         default-shape per-chunk list is then always one segment —
         identical to the per-call scalar form."""
         cfg = self.cfg
+        core = native_evalcore()
+        if core:
+            # native segment walk (csrc/evalcore.cpp gsdr_sigma_slope);
+            # updates self.slope_hist in place like the loop below
+            return core.sigma_slope(
+                snos, cps, cfg.no_sec, cfg.n_cyc, max_slope(cfg),
+                GPS_C / cfg.sample_rate, self.slope_hist)
         n = len(cps)
         seg = (snos - 1) // cfg.no_sec
         bounds = np.nonzero(np.diff(seg))[0] + 1

@@ -3,9 +3,12 @@
 `nvcc` compiles each gps_sdr_tpu_torch/csrc/<name>.cu for sm_90a into a
 shared library of its own with a plain C interface, at first CUDA use,
 under build/gps_sdr_tpu_torch/ at the repository root; the compilers of
-all sources that need building run at the same time.  A library's name
+all sources that need building run at the same time (compile_libraries,
+which also builds the host C++ of nativecore.py).  A library's name
 carries a hash of its source and the flags, so an edited source rebuilds
-and an unchanged one is reused.  Each is loaded with ctypes; a kernel's
+and an unchanged one is reused; a build writes a temporary file that
+replaces the library in one step, under a file lock that lets one
+process of several build while the others wait.  Each is loaded with ctypes; a kernel's
 wrapper passes one argument struct (mirrored below field for field from
 the .cu sources) and the current CUDA stream, and the C entry returns
 cudaGetLastError(), which `check` turns into an exception.  Nothing is
@@ -15,6 +18,7 @@ built or loaded when this module is imported.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -98,11 +102,62 @@ def sources() -> dict[str, Path]:
     return {name: CSRC / f"{name}.cu" for name in ENTRIES}
 
 
-def library_path(src: Path) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(src: Path, flags=NVCC_FLAGS) -> Path:
+    h = hashlib.sha256(" ".join(flags).encode())
     h.update(src.name.encode())
     h.update(src.read_bytes())
     return BUILD_DIR / f"libgsdr_{src.stem}_{h.hexdigest()[:16]}.so"
+
+
+def compile_libraries(jobs: dict[str, tuple[list[str], Path]]) -> float:
+    """Build each job's library that is missing: jobs maps a name to
+    (compiler command up to the output, library path); `-o <tmp>` is
+    appended and the temporary file replaces the library when its
+    compiler succeeds.  The compilers run at the same time, under an
+    exclusive lock on the build directory, so that processes starting
+    together build each library once.  Each compiler's output goes to
+    <library>.log.  Returns the wall seconds spent (0.0 when nothing
+    was missing); raises RuntimeError with the output of every compiler
+    that failed."""
+    if all(lib.exists() for _, lib in jobs.values()):
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        procs = {}
+        for name, (cmd, lib) in jobs.items():
+            if lib.exists():                 # built while we waited
+                continue
+            tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [*cmd, "-o", str(tmp)]
+            procs[name] = (cmd, tmp, lib, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        failed = []
+        for name, (cmd, tmp, lib, proc) in procs.items():
+            try:
+                out, _ = proc.communicate(timeout=900)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, _ = proc.communicate()
+            lib.with_suffix(".log").write_text(" ".join(cmd) + "\n" + out)
+            if proc.returncode != 0:
+                failed.append(f"{name}: {cmd[0]} exited "
+                              f"{proc.returncode}:\n{out}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("build failed for " + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def kernel_jobs() -> dict[str, tuple[list[str], Path]]:
+    """compile_libraries' jobs for the kernel libraries: kernel name ->
+    (nvcc command, library path for the current source)."""
+    return {name: ([nvcc(), *NVCC_FLAGS, str(src)], library_path(src))
+            for name, src in sources().items()}
 
 
 def build() -> tuple[dict[str, Path], float]:
@@ -112,34 +167,9 @@ def build() -> tuple[dict[str, Path], float]:
     compiler's output (with ptxas register/shared-memory use) goes to
     <library>.log."""
     libs = {name: library_path(src) for name, src in sources().items()}
-    todo = {name: lib for name, lib in libs.items() if not lib.exists()}
-    if not todo:
+    if all(lib.exists() for lib in libs.values()):
         return libs, 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    procs = {}
-    for name, lib in todo.items():
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(sources()[name])]
-        procs[name] = (cmd, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    failed = []
-    for name, (cmd, tmp, proc) in procs.items():
-        try:
-            out, _ = proc.communicate(timeout=900)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            out, _ = proc.communicate()
-        lib = todo[name]
-        lib.with_suffix(".log").write_text(" ".join(cmd) + "\n" + out)
-        if proc.returncode != 0:
-            failed.append(f"{name} ({proc.returncode}):\n{out}")
-        else:
-            os.replace(tmp, lib)
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return libs, time.perf_counter() - t0
+    return libs, compile_libraries(kernel_jobs())
 
 
 @functools.lru_cache(maxsize=None)

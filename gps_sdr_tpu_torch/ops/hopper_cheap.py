@@ -19,7 +19,8 @@ What bounds it on the H100: latency, not bytes or flops.  A step moves
 ~40 KB and does a few thousand operations per channel, but each block
 depends on the previous one's phase and frequency corrections.  The
 kernel runs one CTA of three warps per channel (lanes own means slots j
-and j + 32, so n_cyc+1 <= 64): two warps stage the step's inputs in
+and j + 32, or up to j + 96 past 64 slots, so n_cyc+1 <= MAX_SLOTS = 128:
+n_cyc 8 to 64): two warps stage the step's inputs in
 shared memory and form every block's means before the retune rotation;
 then one warp runs the rotation and the PLL block after block, one
 follows it with the edge scan and amplitude, and one runs the
@@ -28,6 +29,15 @@ reductions (shuffles, ballots).  A step is one launch instead of the
 hundreds of small PyTorch ops of the plain version.  The kernel reads
 the carried state and writes the new state, rings included, into fresh
 tensors: `st` is never modified and never copied.
+
+At n_cyc 64 (the kernel's four-slot build) a block lasts 64 ms and the
+unlocked PLL doubles any difference in its rotated means from one block
+to the next, so that build rounds the means, the slot times, the retune
+angle, the rotation and the PLL's updates as this module's PyTorch ops
+round them on the card, and both sum the phases and the df ring in
+float64 (tracking._pll): on chip_smoke.py's chained n_cyc 64 checks the
+two give the same df ring bit for bit (cheap_trace.py CHAINS).  The
+two-slot build (n_cyc 8 to 32) keeps its float32 sums and its bits.
 
 The serving path (runtime/serving.py) runs the channels of S streams as
 one flattened S*C channel axis, so a K-step of all streams is one
@@ -49,6 +59,7 @@ from gps_sdr_tpu_torch.config import ReceiverConfig
 from gps_sdr_tpu_torch.ops import _build
 
 TWO_PI = 2.0 * math.pi
+MAX_SLOTS = 128                 # csrc/cheap.cu kMaxSlots: n_cyc + 1 <= 128
 
 # state fields the scan carries and returns (ChannelState names)
 _STATE = ("carry_sum", "carry_cnt", "sign0", "prev_sign", "prev_signal",
@@ -153,8 +164,9 @@ def cheap_scan(cfg: ReceiverConfig, k: int, head: torch.Tensor,
     dev = head.device
     n_ch, n_cyc = head.shape[0], cfg.n_cyc
     sl = n_cyc + 1
-    if sl > 64:
-        raise ValueError(f"cheap kernel: n_cyc+1 = {sl} slots > 64")
+    if sl > MAX_SLOTS:
+        raise ValueError(f"cheap kernel: n_cyc+1 = {sl} slots > "
+                         f"{MAX_SLOTS}")
     want = {"head": (head, torch.complex64, (n_ch, k)),
             "seg": (seg, torch.complex64, (n_ch, k, n_cyc)),
             "delay": (delay, torch.int32, (n_ch, k)),

@@ -25,6 +25,7 @@ from typing import NamedTuple
 import numpy as np
 
 from gps_sdr_tpu_torch.config import GPS_C, OMEGA_EARTH
+from gps_sdr_tpu_torch.nativecore import native_evalcore
 from gps_sdr_tpu_torch.utils.geodesy import WGS84_A, WGS84_F
 
 
@@ -326,6 +327,30 @@ def solve_fix_batch(sat_pos: np.ndarray, time_delay: np.ndarray,
     if crf.ndim == 0:
         crf = np.full(E, float(crf))
     use_rate = clock_rate and n >= 5
+    if not use_rate:
+        core = native_evalcore()
+        if core:
+            m = n + (1 if height is not None else 0)
+            if std_dev is None:
+                w = np.ones((E, m))
+            else:
+                s = np.asarray(std_dev, np.float64)
+                if height is not None:
+                    s = np.concatenate(
+                        [s, np.full((E, 1), height_dev)], axis=1)
+                w = 1.0 / np.maximum(s, 1e-6) ** 2
+            rp0 = (None if rec_pos0 is None else np.broadcast_to(
+                np.asarray(rec_pos0, np.float64)[..., :4], (E, 4)))
+            res = core.fix_batch(sat_pos, td, w, rp0, crf, max_it,
+                                 max_residual, t0_guess, height)
+            if res is not None:
+                pos, residual, rng, meas, n_iter, covs, res_m = res
+                return FixBatch(pos=pos, residual=residual,
+                                range_est=rng, meas_delay=meas,
+                                n_iter=n_iter, clock_rate=crf,
+                                cov=covs, res_m=res_m)
+            # a singular epoch: fall through to the numpy path, whose
+            # batch np.linalg.solve raises for the caller's fallback
     cdt = GPS_C * (td - td[:, :1]) * (1.0 - crf[:, None])
     nu = 5 if use_rate else 4
 

@@ -296,7 +296,10 @@ def _pll(means, mask, n_valid, locked, df_buf, df_cnt, df_idx,
     """Carrier PLL: arctan(Q/I) (not atan2: the pi-step unwrap depends on
     the (-pi/2, pi/2) range), pi-step unwrap as a cumulative sum of jump
     indicators, drift feed-forward from the df ring, slew clip, lock.
-    A mean of exactly 0+0j takes sign(Q)*pi/2 instead of 0/0."""
+    A mean of exactly 0+0j takes sign(Q)*pi/2 instead of 0/0.  The phase
+    and df-ring sums run in float64 and are rounded once to float32, so
+    that no order of summation shows in them (the cheap kernel's n_cyc
+    64 build, csrc/cheap.cu plain_phase_sums, sums the same way)."""
     no_sec = cfg.no_sec
     max_df = cfg.pll_max_df_per_sec / no_sec
     ns = means.shape[-1]
@@ -314,15 +317,15 @@ def _pll(means, mask, n_valid, locked, df_buf, df_cnt, df_idx,
         dim=-1) * math.pi
     fmask = mask.to(torch.float32)
     nv = torch.clamp(n_valid, min=1).to(torch.float32)
-    phase_dev = (real_phase * fmask).sum(dim=-1) / nv
+    phase_dev = (real_phase * fmask).double().sum(dim=-1).float() / nv
     tail = ((torch.arange(ns, device=dev)
              >= (n_valid - cfg.pll_offset_avg)[:, None]) & mask
             ).to(torch.float32)
-    phase_offset = (real_phase * tail).sum(dim=-1) \
+    phase_offset = (real_phase * tail).double().sum(dim=-1).float() \
         / torch.clamp(tail.sum(dim=-1), min=1.0)
 
-    mean_df = df_buf.sum(dim=-1) / torch.clamp(df_cnt, min=1).to(
-        torch.float32)
+    mean_df = df_buf.double().sum(dim=-1).float() / torch.clamp(
+        df_cnt, min=1).to(torch.float32)
     df_locked = torch.clamp(cfg.pll_gain_locked * phase_dev + mean_df,
                             -max_df, max_df)
     df_unlocked = cfg.pll_gain_unlocked * phase_dev

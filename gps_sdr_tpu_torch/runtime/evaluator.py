@@ -24,6 +24,7 @@ from gps_sdr_tpu_torch.config import GPS_C, L1_FREQ, ReceiverConfig
 from gps_sdr_tpu_torch.models.ephemeris import SatStatus
 from gps_sdr_tpu_torch.models.pseudorange import (PseudorangeEngine,
                                                   finish_deferred)
+from gps_sdr_tpu_torch.nativecore import native_evalcore
 from gps_sdr_tpu_torch.ops.pvt import (FixBatch, FixResult, solve_fix,
                                        solve_fix_batch,
                                        solve_velocity)
@@ -33,6 +34,19 @@ from gps_sdr_tpu_torch.utils.tuplelog import TupleLog
 
 
 # -- code-phase hygiene -------------------------------------------------------
+
+def unwrap_numpy(nos, raw, cs, diff_tol):
+    """The numpy unwrap core (what csrc/evalcore.cpp gsdr_unwrap
+    computes): (corrected copy of raw, indices i of the physically
+    impossible steps between entries i and i + 1)."""
+    d = raw[:-1] - raw[1:]
+    s = np.where(np.abs(np.abs(d) - cs) <= diff_tol, np.sign(d), 0.0)
+    corr = raw.copy()
+    corr[1:] += np.cumsum(s) * cs
+    step = np.abs(np.diff(corr))
+    gaps = np.diff(nos)
+    return corr, np.nonzero(step > 1 + (gaps - 1) * 0.2)[0]
+
 
 def unwrap_code_phases(sat_no: int, cplst: list, err_stream: dict,
                        prev_tail: tuple | None, cfg: ReceiverConfig,
@@ -57,14 +71,9 @@ def unwrap_code_phases(sat_no: int, cplst: list, err_stream: dict,
         # differences — the correction is a plain cumulative sum of
         # per-step wrap signs.  Bit-identical to the reference loop.
         nos, raw = cp_arrays(cplst)
-        d = raw[:-1] - raw[1:]
-        s = np.where(np.abs(np.abs(d) - cs) <= diff_tol,
-                     np.sign(d), 0.0)
-        corr = raw.copy()
-        corr[1:] += np.cumsum(s) * cs
-        step = np.abs(np.diff(corr))
-        gaps = np.diff(nos)
-        flagged = np.nonzero(step > 1 + (gaps - 1) * 0.2)[0]
+        core = native_evalcore()
+        corr, flagged = (core.unwrap if core else unwrap_numpy)(
+            nos, raw, cs, diff_tol)
         for i in flagged:
             no, pno = int(nos[i + 1]), int(nos[i])
             if log is not None:

@@ -1,10 +1,12 @@
 """Top-level receiver session on PyTorch: source -> receiver -> evaluator.
 
 Port of gps_sdr_tpu/runtime/session.py over the port's Receiver: the
-host-fed run_source and the device-resident run_device_source.  The
-evaluator, I/O and reporters are the port's copies of the JAX
-package's host modules, so fix-level results differ from the JAX
-session only through the device half.
+host-fed run_source, the device-resident run_device_source, and the
+evaluator-only paths: run_epoch_records (a recorded epoch fixture, the
+reference's LOAD_PICKLE) and run_udp_followup (then live epochs over
+UDP, runtime/transport.py).  The evaluator, I/O and reporters are the
+port's copies of the JAX package's host modules, so fix-level results
+differ from the JAX session only through the device half.
 """
 
 from __future__ import annotations
@@ -74,6 +76,45 @@ class Session:
             processed = self.receiver.status.blocks_processed
             self.meter.add((processed - done) * self.cfg.ngps)
             done = processed
+        return self.final_summary()
+
+    def run_epoch_records(self, records: list) -> dict:
+        """Replay recorded epoch inputs through the evaluator only (the
+        reference's LOAD_PICKLE path, gpseval.py:516-524)."""
+        for rec in records:
+            self._consume(rec if isinstance(rec, EpochInput)
+                          else EpochInput(*rec))
+        return self.final_summary()
+
+    def run_udp_followup(self, max_sec: float | None = None,
+                         idle_timeout: float = 30.0) -> dict:
+        """Continue consuming epochs from the live UDP transport after a
+        fixture replay ends (the reference's LOAD_PICKLE fall-through at
+        list end, gpseval.py:516-524): statistics, ephemerides and the
+        reporter carry over from the replayed prefix.  Ends after
+        idle_timeout s without an epoch, or after max_sec s."""
+        from gps_sdr_tpu_torch.runtime.transport import EpochReceiver
+
+        rx = EpochReceiver()
+        t0 = time.time()
+        idle = 0.0
+        try:
+            while True:
+                epoch = rx.recv()
+                if epoch is None:
+                    time.sleep(0.05)
+                    idle += 0.05
+                    if idle > idle_timeout or (
+                            max_sec is not None
+                            and time.time() - t0 > max_sec):
+                        break
+                    continue
+                idle = 0.0
+                self._consume(epoch)
+        except KeyboardInterrupt:
+            rx.request_stop()
+        finally:
+            rx.close()
         return self.final_summary()
 
     def _consume(self, epoch: EpochInput) -> None:

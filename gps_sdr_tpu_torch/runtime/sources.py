@@ -7,10 +7,10 @@ with value = 256*Q + I, normalized to complex64 via v/127.5 - (1+1j)
 (gpsrecv.py:168-172), so recorded captures replay bit-identically.
 
 The uint16 -> complex64 unpack is the only byte-crunching on the host
-data path.  This copy of gps_sdr_tpu/runtime/sources.py keeps its numpy
-path only (the native unpack, csrc/ingest.cpp, is not ported);
-replay_decimated runs the port's digital front end (ops/frontend.py) on
-`device`.
+data path: the port's copy of csrc/ingest.cpp (runtime/_native.py,
+built at first use) does it, with the numpy version beside it as the
+reference (unpack_iq_numpy).  replay_decimated runs the port's digital
+front end (ops/frontend.py) on `device`.
 """
 
 from __future__ import annotations
@@ -24,7 +24,14 @@ from gps_sdr_tpu_torch.config import ReceiverConfig
 
 
 def unpack_iq(words: np.ndarray) -> np.ndarray:
-    """uint16 packed IQ -> normalized complex64.
+    """uint16 packed IQ -> normalized complex64, natively
+    (csrc/ingest.cpp; bit-identical to unpack_iq_numpy)."""
+    from gps_sdr_tpu_torch.runtime._native import unpack_iq as native
+    return native(words)
+
+
+def unpack_iq_numpy(words: np.ndarray) -> np.ndarray:
+    """uint16 packed IQ -> normalized complex64, in numpy.
 
     Per-component v/127.5 - 1 evaluated in double and rounded once to
     f32 (identical to the native LUT in csrc/ingest.cpp; the reference

@@ -48,50 +48,52 @@ def _jax(cfg):
     return JaxConfig(**dataclasses.asdict(cfg))
 
 
-def _tables():
-    codes = np.zeros((2, CFG.code_samples), np.float32)
-    ffts = np.zeros((2, CFG.code_samples), np.complex64)
+def _tables(cfg=CFG):
+    codes = np.zeros((2, cfg.code_samples), np.float32)
+    ffts = np.zeros((2, cfg.code_samples), np.complex64)
     for i, s in enumerate(SATS):
-        codes[i] = cacode.ca_table(CFG)[s.prn]
-        ffts[i] = cacode.ca_fft_table(CFG)[s.prn]
+        codes[i] = cacode.ca_table(cfg)[s.prn]
+        ffts[i] = cacode.ca_fft_table(cfg)[s.prn]
     return jnp.asarray(codes), jnp.asarray(ffts)
 
 
-def _fresh():
-    st = jtrk.init_channel_states(_jax(CFG), 2)
+def _fresh(cfg=CFG):
+    st = jtrk.init_channel_states(_jax(cfg), 2)
     for i, s in enumerate(SATS):
         st = jtrk.reset_channel(st, i, s.prn, s.doppler, int(s.code_delay),
-                                _jax(CFG))
+                                _jax(cfg))
     return st
 
 
-def _tracked(n_warm):
+def _tracked(n_warm, cfg=CFG):
     """(state after n_warm tracked blocks, heavy result of the next K)."""
-    blocks = jnp.asarray(synth_stream(CFG, SATS, n_warm + K,
+    blocks = jnp.asarray(synth_stream(cfg, SATS, n_warm + K,
                                       noise_std=0.2, seed=9))
-    codes, ffts = _tables()
-    st = _fresh()
+    codes, ffts = _tables(cfg)
+    st = _fresh(cfg)
     if n_warm:
-        st, _ = jtrk.track_chunk_batched(_jax(CFG), st, blocks[:n_warm],
+        st, _ = jtrk.track_chunk_batched(_jax(cfg), st, blocks[:n_warm],
                                          jnp.int32(1), codes, ffts)
-    heavy = jtrk.heavy_stage(_jax(CFG), K, st, blocks[n_warm:], codes, ffts)
+    heavy = jtrk.heavy_stage(_jax(cfg), K, st, blocks[n_warm:], codes, ffts)
     return st, heavy
 
 
-def _three_ways(states, heavy, stream_no0):
-    xla = jax.vmap(functools.partial(jtrk.channel_step_k, _jax(CFG), K),
+def _three_ways(states, heavy, stream_no0, cfg=CFG):
+    xla = jax.vmap(functools.partial(jtrk.channel_step_k, _jax(cfg), K),
                    in_axes=(0, 0, None), out_axes=0)
     tree = {k: np.asarray(v) for k, v in jtrk.pack_states(states).items()}
     got_st, got = ttrk.channel_step_k(
-        CFG, K, ttrk.states_from_numpy(tree, "cpu"),
+        cfg, K, ttrk.states_from_numpy(tree, "cpu"),
         ttrk.HeavyOut(*[torch.from_numpy(np.array(x)) for x in heavy]),
         stream_no0)
     ref = [xla(states, heavy, jnp.int32(stream_no0)),
-           cheap_stage_pallas(_jax(CFG), K, states, heavy, jnp.int32(stream_no0))]
+           cheap_stage_pallas(_jax(cfg), K, states, heavy, jnp.int32(stream_no0))]
     return (got_st, got), ref
 
 
-def _compare(got_pair, ref_pair):
+def _compare(got_pair, ref_pair, state_atol=None):
+    """Outputs and state at the cheap tolerances; with `state_atol`, every
+    float state (df ring included) at that tolerance instead."""
     got_st, got = got_pair
     ref_st, ref = ref_pair
     go = {k: v.numpy() for k, v in got._asdict().items()}
@@ -117,10 +119,10 @@ def _compare(got_pair, ref_pair):
     for name, v in want.items():
         if name.startswith(("freq", "phase", "std_dev", "prev_signal",
                             "carry_sum")):
-            np.testing.assert_allclose(have[name], v, atol=1e-3,
+            np.testing.assert_allclose(have[name], v, atol=state_atol or 1e-3,
                                        err_msg=name)
         elif name == "df_buf":
-            np.testing.assert_allclose(have[name], v, atol=1e-5)
+            np.testing.assert_allclose(have[name], v, atol=state_atol or 1e-5)
         else:                                       # integer-valued
             np.testing.assert_array_equal(have[name], v, err_msg=name)
 
@@ -258,3 +260,40 @@ def test_cheap_trace_plain_side():
     assert all(chip_smoke._same_bits(a, b) for a, b in zip(out, want))
     assert tr["df"].shape == (3 * CFG.max_sat, K)
     assert torch.equal(tr["locked_in"][:, 0], erased.locked.float())
+
+
+# n_cyc 64: 65 means slots a block, past the two slots a lane that the
+# kernel took before (its four-slot build, csrc/cheap.cu H = 4)
+CFG64 = CFG.replace(n_cyc=64)
+
+
+@pytest.mark.parametrize("ref", ["xla", "pallas"])
+def test_cheap_stage_at_n_cyc_64(ref):
+    states, heavy = _tracked(8, CFG64)
+    got, refs = _three_ways(states, heavy, 9, CFG64)
+    _compare(got, refs[ref == "pallas"])
+    assert got[1].edge_valid.shape[-1] == 65
+
+
+def test_k_fused_tracking_at_n_cyc_64():
+    """The JAX package's track_chunk_batched_impl (XLA cheap stage)
+    against the port's plain K-fused path at n_cyc 64: every block's
+    outputs at the cheap tests' tolerances; the final float state (df
+    ring included) at tests/test_torch_tracking.py's 1e-2, since over a
+    chunk it carries the heavy stage's f32 sums forward, not only the
+    cheap stage's (carry_sum, the last segment's raw sum of ~cs samples,
+    2.6e-3 apart here; the df ring 2.6e-4).  One second of 16 blocks,
+    four K-steps."""
+    n_blocks = CFG64.no_sec
+    blocks = synth_stream(CFG64, SATS, n_blocks, noise_std=0.2, seed=9)
+    codes, ffts = _tables(CFG64)
+    states = _fresh(CFG64)
+    tree = {k: np.asarray(v) for k, v in jtrk.pack_states(states).items()}
+    jst, jo = jtrk.track_chunk_batched_impl(
+        _jax(CFG64), states, jnp.asarray(blocks), jnp.int32(1), codes, ffts)
+    tst, to = ttrk.track_chunk_batched_impl(
+        CFG64, ttrk.states_from_numpy(tree, "cpu"), torch.from_numpy(blocks),
+        1, torch.from_numpy(np.array(codes)), torch.from_numpy(np.array(ffts)))
+    _compare((tst, to), (jst, jo), state_atol=1e-2)
+    assert to.edge_valid.shape == (n_blocks, 2, 65)
+    assert to.locked.any() and to.edge_valid.any()

@@ -1,10 +1,11 @@
 """The port's command line: `replay` through the port's Session (also of
 a real-IF capture at 4x the rate, through the front end), `snapshot` at
-a later block of a capture, and clear errors for what is not ported yet
-(never a route to JAX).  `serve` and --save-state/--resume-state are
-tested in tests/test_torch_checkpoint.py, `replay --input-rate` of an iq8
-capture in tests/test_torch_frontend.py and the `snapshot` bars in
-tests/test_torch_snapshot.py."""
+a later block of a capture, and every mode, role and UI of the JAX CLI
+reaching its runner.  `serve` and --save-state/--resume-state are tested
+in tests/test_torch_checkpoint.py, `replay --input-rate` of an iq8
+capture in tests/test_torch_frontend.py, the `snapshot` bars in
+tests/test_torch_snapshot.py, and `epochs`, `eval`, --role recv, `live`
+and --ui plot in tests/test_torch_cli_modes.py."""
 
 import numpy as np
 import pytest
@@ -40,28 +41,32 @@ def test_replay_runs_the_port_on_cpu(tmp_path, capsys):
     assert sorted(recs[0][2]) == [5, 12]          # code phases per PRN
 
 
-@pytest.mark.parametrize("argv", [
-    ["synth", "--role", "eval"],
-    ["epochs", "x.pickle"],
-    ["eval"],
-    ["live"],
-    ["synth", "--role", "recv", "--ui", "plot"],
-    ["replay", "x.bin", "--role", "recv"],
-    ["replay", "x.bin", "--ui", "plot"],
-    ["synth", "--ui", "plot"],
-    ["live", "--role", "recv", "--ui", "plot"],
+@pytest.mark.parametrize("argv,runner", [
+    (["synth", "--role", "eval"], "run_eval_process"),
+    (["epochs", "x.pickle"], "run_in_process"),
+    (["eval"], "run_eval_process"),
+    (["live"], "run_in_process"),
+    (["synth", "--role", "recv", "--ui", "plot"], "run_recv_process"),
+    (["replay", "x.bin", "--role", "recv"], "run_recv_process"),
+    (["replay", "x.bin", "--ui", "plot"], "run_in_process"),
+    (["synth", "--ui", "plot"], "run_in_process"),
+    (["live", "--role", "recv", "--ui", "plot"], "run_recv_process"),
 ])
-def test_not_ported_is_an_error(argv, capsys):
-    """The refusal names the first missing piece: the mode, then --role,
-    then --ui plot."""
-    assert cli.main(argv) == 2
-    if argv[0] not in cli.PORTED_MODES:
-        want = f"mode {argv[0]!r}"
-    elif "--role" in argv:
-        want = f"--role {argv[argv.index('--role') + 1]}"
-    else:
-        want = "--ui plot"
-    assert f"{want} is not yet ported" in capsys.readouterr().err
+def test_every_mode_reaches_its_runner(argv, runner, monkeypatch):
+    """The argv the port once refused by name now reach the JAX CLI's
+    runner for them: the evaluator half for `eval` and --role eval, the
+    receiver half for --role recv, the Session otherwise."""
+    called = []
+    for name in ("run_eval_process", "run_recv_process", "run_in_process"):
+        monkeypatch.setattr(cli, name,
+                            lambda args, cfg, name=name: called.append(
+                                (name, args)) or 0)
+    assert cli.main(argv) == 0
+    ((name, args),) = called
+    assert name == runner
+    assert args.ui == ("plot" if "plot" in argv else "headless")
+    if args.mode in cli.DEVICE_MODES:
+        assert args.device == "cuda"
 
 
 def test_replay_real_if_input_rate(tmp_path, capsys):

@@ -10,7 +10,8 @@ chip_smoke.py's (check_wipeoff for both wipeoff kernels, with crafted
 wipe delays, check_cheap_chain and check_cheap_case, and
 check_stream_axis for the serving path's stream axis, also with
 noise-led channels; check_decimation and check_excision for the front
-end; check_repeat_bits and track_bias for the wideband slice), here also
+end; check_repeat_bits and track_bias for the wideband slice; the cheap
+checks at n_cyc 64 of phase 10e), here also
 at the small test configuration, plus the
 slice with the kernels against the slice with their plain versions, and
 the slice on the card (run and run_device) against the slice on the
@@ -169,6 +170,18 @@ def test_cheap_kernel_crafted_case(cuda, cfg, n_ch):
     """chip_smoke.cheap_case: edges in the last two slots, PLL unwrap
     steps, slot compaction, channels locking inside the step, full
     wrapped rings; the kernel leaves its input state unchanged."""
+    chip_smoke.check_cheap_case(cfg, n_ch, 3, cuda)
+
+
+@pytest.mark.parametrize("n_ch", [11, 32])
+def test_cheap_kernel_at_n_cyc_64(cuda, n_ch):
+    """The four-slot build (65 slots): chip_smoke.py phase 10e's chained
+    steps and crafted case at n_cyc 64, with phase 3's tolerances."""
+    cfg = PRODUCT.replace(n_cyc=64)
+    st, chunk, codes, ffts = chip_smoke.make_case(
+        cfg, n_ch, cfg.no_sec, 5 + n_ch, cuda, on_card=True)
+    assert chip_smoke.check_cheap_chain(cfg, st, chunk, codes,
+                                        ffts)["edges"] > 0
     chip_smoke.check_cheap_case(cfg, n_ch, 3, cuda)
 
 

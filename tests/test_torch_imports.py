@@ -4,8 +4,9 @@ falls back to the CPU.
 Importing gps_sdr_tpu_torch and every one of its modules must leave
 `jax` and every `gps_sdr_tpu` module out of sys.modules (checked in a
 fresh interpreter, since this test process has both loaded): the port
-keeps its own copy of the host modules it needs.  chip_smoke.py imports
-only the standard library, torch, numpy and the port.  Asking for CUDA
+keeps its own copy of the host modules it needs, and its native host
+core maps no library of the JAX package.  chip_smoke.py imports only the
+standard library, torch, numpy and the port.  Asking for CUDA
 where there is none must raise instead of running on the CPU."""
 
 import ast
@@ -51,6 +52,39 @@ def test_every_module_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, cwd=ROOT, timeout=300)
     assert res.returncode == 0, res.stderr
+    assert "FOREIGN_MODULES []" in res.stdout, res.stdout
+
+
+def test_port_loads_nothing_of_the_jax_package_nor_optional_packages():
+    """Every module of the port imported and its native host core built
+    and loaded, in a fresh interpreter: the process maps the port's
+    three host libraries and no library under gps_sdr_tpu/ (the JAX
+    package's libgsdreval, libgsdrnav, libgstingest), and holds no
+    module of jax, gps_sdr_tpu, matplotlib (--ui plot only) or rtlsdr
+    (`live` only)."""
+    mods = _all_modules()
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "from gps_sdr_tpu_torch import nativecore\n"
+            "for name in nativecore.HOST_SOURCES:\n"
+            "    nativecore.load_native_lib(name)\n"
+            "libs = {l.split()[-1] for l in open('/proc/self/maps')\n"
+            "        if l.split()[-1].endswith('.so')}\n"
+            "print('JAX_LIBS', sorted(p for p in libs\n"
+            "                         if '/gps_sdr_tpu/' in p))\n"
+            "print('PORT_LIBS', sum('/build/gps_sdr_tpu_torch/' in p\n"
+            "                       for p in libs))\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+            "             ('jax', 'gps_sdr_tpu', 'matplotlib', 'rtlsdr'))\n"
+            "print('FOREIGN_MODULES', bad)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "JAX_LIBS []" in res.stdout, res.stdout
+    assert "PORT_LIBS 3" in res.stdout, res.stdout
     assert "FOREIGN_MODULES []" in res.stdout, res.stdout
 
 
