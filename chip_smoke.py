@@ -140,13 +140,45 @@ Phases (any failure raises and the script exits non-zero):
         back by replay_blocks to the same blocks;
      e. phase 3's cheap checks at n_cyc 64 (the kernel's four-slot
         build) with 11 and 32 channels, and the cheap kernel's wrapper
-        and plain times and bound at cs 16384, n_cyc 8, 11 channels.
+        and plain times and bound at cs 16384, n_cyc 8, 11 channels;
+ 11. the sharding slice (gps_sdr_tpu_torch/parallel), every mesh of
+     cuda:0 repeated (and of the real devices too where there are more
+     than one); each sub-phase's wall and CUDA-event span logged:
+     a. acquire_sharded on block 0 of phase 4's blocks, the product grid
+        on a (2, 4) mesh and the +-10 kHz grid on (4, 2), against the
+        unsharded acquire_impl (found, delay, freq exact, norm_max rtol
+        2e-5) under utils/profiling.trace (its device busy time read
+        back by device_time_from_trace): the scenario's PRNs found;
+     b. TRACK_BLOCKS blocks of phase 4's blocks from the 11 slots 11a's
+        acquisitions fill: the sequential K=1 scan on the card (its ms a
+        block), the exact stitch on a (2, 2) mesh (12 slots) against it
+        (code_phase 1e-4, freq 1e-3, locked and edge_valid exact, final
+        freq/phase 1e-3), both through the receiver's consume pipeline
+        and an Evaluator: the sequential run >= 4 ephemerides and a mean
+        fix within 8 m, the stitched run the same subframes and fixes
+        within 1e-3 m epoch by epoch; then the state handoff at
+        HANDOFF_GRID, each row's lost subframes, fixes, error and median
+        separation from the sequential fixes logged;
+     c. phase 7b's 8 replicas (kernel 1) over a stream mesh of 4 and 7c's
+        3 front ends (kernel 2) over a stream mesh of 3: each stream's
+        epochs equal phase 7's unsharded server's (code phases within
+        1e-5, frames' SAT and tow), 7b's fix bars, the wipeoff kernel and
+        cheap once per group per K-step and the other wipeoff kernel
+        never; the replicas saved halfway, resumed by load_server(mesh=)
+        and run on: the uninterrupted sharded run's subframes and code
+        phases exactly;
+     d. two child processes (gloo on a free TCP port, each rank cuda:0 x
+        2, a global (2, 2) mesh): track_sharded (exact) on 11b's first
+        MP_BLOCKS blocks and acquire_sharded on block 0 equal the
+        in-process (2, 2) mesh's and 11a's; neither child holds jax or
+        gps_sdr_tpu; the children are killed in a `finally`.
 The line before the last holds the kernels' launches, errors, times and
 bounds as JSON; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -1032,18 +1064,23 @@ def _ev_summary(ev) -> dict:
                             if eng.ephem_ok}}
 
 
-def serve(cfg, n_streams, providers, n_chunks, keep_epochs=()):
+def serve(cfg, n_streams, providers, n_chunks, keep_epochs=(), mesh=None,
+          server=None):
     """Drive a StreamServer on the card as `python -m gps_sdr_tpu_torch
-    serve` does (process_many over each round of streams); returns
-    (server, evaluators, wall s, {stream: epochs} for keep_epochs,
-    acquisition grids run)."""
+    serve` does (process_many over each round of streams), a new one
+    (over `mesh` if given) or `server` = (StreamServer, evaluators);
+    returns (server, evaluators, wall s, {stream: epochs} for
+    keep_epochs, acquisition grids run)."""
     import torch
     from gps_sdr_tpu_torch.runtime import receiver as receiver_mod
     from gps_sdr_tpu_torch.runtime.evaluator import Evaluator, process_many
     from gps_sdr_tpu_torch.runtime.serving import StreamServer
 
-    srv = StreamServer(cfg, n_streams, device="cuda")
-    evs = [Evaluator(cfg) for _ in range(n_streams)]
+    if server is None:
+        srv = StreamServer(cfg, n_streams, device="cuda", mesh=mesh)
+        evs = [Evaluator(cfg) for _ in range(n_streams)]
+    else:
+        srv, evs = server
     kept = {s: [] for s in keep_epochs}
     grids = []
     real = receiver_mod.acquire_all
@@ -1074,10 +1111,12 @@ def serve(cfg, n_streams, providers, n_chunks, keep_epochs=()):
     return srv, evs, wall, kept, len(grids)
 
 
-def _check_streams(tag, scns, srv, evs, launches, wall, sig_sec, name):
-    """Phase 7b/7c checks common to both: every stream's PRNs, ephemerides
-    and fix (_check_fix), no dropped edge, and one launch of `name` and
-    of cheap per K-step of one stream."""
+def _check_streams(tag, scns, srv, evs, launches, wall, sig_sec, name,
+                   groups: int = 1):
+    """Phase 7b/7c/11c checks common to all: every stream's PRNs,
+    ephemerides and fix (_check_fix), no dropped edge, and one launch of
+    `name` and of cheap per K-step of one stream and group of streams
+    (a stream mesh's device; one without a mesh)."""
     errs = []
     for s, (scn, rx, ev) in enumerate(zip(scns, srv.receivers, evs)):
         errs.append(_check_fix(f"{tag} stream {s}", scn, rx, _ev_summary(ev)))
@@ -1094,11 +1133,12 @@ def _check_streams(tag, scns, srv, evs, launches, wall, sig_sec, name):
         f"{json.dumps({k: round(v, 4) for k, v in srv.perf.items()})}; "
         f"K-steps of a stream {k_steps}, launches {launches}, per K-step "
         f"{per_step}")
-    if not (launches[name] == launches["cheap"] == k_steps
+    if not (launches[name] == launches["cheap"] == k_steps * groups
             and launches[other] == 0 and k_steps > 0):
         raise AssertionError(f"launches {launches}: want one {name} and one "
                              f"cheap launch per K-step of one stream "
-                             f"({k_steps}) and no {other}")
+                             f"({k_steps}) and group ({groups}) and no "
+                             f"{other}")
     return errs
 
 
@@ -1120,7 +1160,8 @@ def run_serving_slice(base_cfg, n_streams: int = 8) -> dict:
     n_chunks = int(round(SLICE_SEC / cfg.block_sec)) // t
     sig_sec = n_chunks * t * cfg.block_sec
     srv, evs, wall, kept, grids = serve(cfg, n_streams, synth.chunk_planar,
-                                        n_chunks, keep_epochs=(0,))
+                                        n_chunks,
+                                        keep_epochs=range(n_streams))
     launches = _read_launches()
     errs = _check_streams("7b", [scn] * n_streams, srv, evs, launches, wall,
                           sig_sec, "wipeoff")
@@ -1150,7 +1191,7 @@ def run_serving_slice(base_cfg, n_streams: int = 8) -> dict:
         f"{cp_err:.3g} samples; acquisition grids run: {grids}")
     return dict(launches=launches, err_m=errs, wall_s=wall,
                 rtf=n_streams * sig_sec / wall, perf=dict(srv.perf),
-                cp_err_vs_single=cp_err, subframes=len(fr_s))
+                cp_err_vs_single=cp_err, subframes=len(fr_s), epochs=kept)
 
 
 def run_independent_slice(base_cfg, seeds=(3, 5, 7)) -> dict:
@@ -1169,9 +1210,10 @@ def run_independent_slice(base_cfg, seeds=(3, 5, 7)) -> dict:
     t = cfg.no_sec
     n_chunks = int(round(SLICE_SEC / cfg.block_sec)) // t
     sig_sec = n_chunks * t * cfg.block_sec
-    srv, evs, wall, _, grids = serve(cfg, len(seeds),
-                                     [sy.chunk_planar for sy in synths],
-                                     n_chunks)
+    srv, evs, wall, kept, grids = serve(cfg, len(seeds),
+                                        [sy.chunk_planar for sy in synths],
+                                        n_chunks,
+                                        keep_epochs=range(len(seeds)))
     launches = _read_launches()
     errs = _check_streams("7c", scns, srv, evs, launches, wall, sig_sec,
                           "wipeoff_vpu")
@@ -1181,7 +1223,8 @@ def run_independent_slice(base_cfg, seeds=(3, 5, 7)) -> dict:
                              f"{prns}")
     log(f"[7c] PRNs by stream {prns}; acquisition grids run: {grids}")
     return dict(launches=launches, err_m=errs, wall_s=wall,
-                rtf=len(seeds) * sig_sec / wall, perf=dict(srv.perf))
+                rtf=len(seeds) * sig_sec / wall, perf=dict(srv.perf),
+                epochs=kept)
 
 
 # --------------------------------------------------------------------------
@@ -2334,6 +2377,661 @@ def run_cheap_ncyc64(cfg, dev) -> dict:
 
 
 # --------------------------------------------------------------------------
+# the sharding slice (phase 11; check_acquire_sharded, epochs_equal and
+# the multi-process helpers also used by tests/test_torch_parallel.py and
+# tests/test_torch_cuda.py)
+
+TRACK_BLOCKS = 1000             # 11b: 32 s of the phase-4 scenario
+MP_BLOCKS = 256                 # 11d: the first blocks of 11b
+# 11b: (time shards, warmup blocks) of the state-handoff rows.  Each row
+# is a K=1 scan of the whole stream, ~7 s on the card (host-bound); the
+# full 3 x 3 grid of 2/4/8 shards x warmups 2/4/8 took 67 s, so the smoke
+# run keeps the rows that bound the operating point (PERF.md §6)
+HANDOFF_GRID = ((2, 4), (2, 8), (8, 8))
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def sub_phase(tag: str | None, dev="cuda"):
+    """Time the block: yields a dict that gets its wall (s) and, on the
+    card, its CUDA-event span on cuda:0 (ms: device time from the first
+    to the last work enqueued in it, idle gaps included; NaN on the
+    CPU); logged under `tag` unless it is None."""
+    import torch
+
+    span = {}
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        ev0.record()
+    t0 = time.perf_counter()
+    yield span
+    if on_card:
+        ev1.record()
+        torch.cuda.synchronize()
+    span["wall_s"] = time.perf_counter() - t0
+    span["event_ms"] = ev0.elapsed_time(ev1) if on_card else float("nan")
+    if tag is not None:
+        log(f"[{tag}] wall {span['wall_s']:.3f} s, CUDA-event span "
+            f"{span['event_ms']:.1f} ms")
+
+
+def mesh_device_sets(n: int, dev="cuda") -> list:
+    """The device lists a phase-11 mesh of n runs on: cuda:0 repeated,
+    and the real devices (cycled) when the machine has more than one
+    (dev="cpu": the CPU repeated, a rehearsal's)."""
+    import torch
+
+    if torch.device(dev).type == "cpu":
+        return [["cpu"] * n]
+    sets = [["cuda:0"] * n]
+    count = torch.cuda.device_count()
+    if count > 1:
+        sets.append([f"cuda:{i % count}" for i in range(n)])
+    return sets
+
+
+def check_acquire_sharded(cfg, block, devices, time_shards, prns=None):
+    """acquire_sharded over a (time_shards, len(devices) / time_shards)
+    mesh of `devices` against the unsharded acquire_impl on the mesh's
+    first device: found, delay and freq exact, norm_max rtol 2e-5
+    (tests/test_parallel.py).  Returns the sharded AcqResult (numpy)."""
+    import numpy as np
+    import torch
+    from gps_sdr_tpu_torch.ops import cacode
+    from gps_sdr_tpu_torch.ops.acquisition import acquire_impl
+    from gps_sdr_tpu_torch.parallel import acquire_sharded, make_mesh
+
+    mesh = make_mesh(len(devices), time_shards, devices)
+    prns = np.asarray(cfg.prns if prns is None else prns)
+    ffts = cacode.ca_fft_table(cfg)[prns]
+    dop = cfg.doppler_bins.astype(np.float32)
+    got = acquire_sharded(cfg, mesh, block, dop, ffts)
+    dev = mesh.home
+    ref = acquire_impl(cfg, torch.as_tensor(np.asarray(block)).to(dev),
+                       torch.as_tensor(dop).to(dev),
+                       torch.as_tensor(ffts).to(dev))
+    for name in ("found", "delay", "freq"):
+        want = getattr(ref, name).cpu().numpy()
+        if not np.array_equal(getattr(got, name), want):
+            raise AssertionError(f"sharded acquisition {name} differs from "
+                                 f"the unsharded: {getattr(got, name)} vs "
+                                 f"{want}")
+    np.testing.assert_allclose(got.norm_max, ref.norm_max.cpu().numpy(),
+                               rtol=2e-5)
+    return got
+
+
+def found_list(res, prns) -> list:
+    """(norm_max, prn, freq, delay) of the found rows, strongest first:
+    acquire_all's answer."""
+    return sorted(((float(res.norm_max[i]), int(p), float(res.freq[i]),
+                    int(res.delay[i])) for i, p in enumerate(prns)
+                   if res.found[i]), reverse=True)
+
+
+def run_sharded_acquisition(cfg, block, truth, dev="cuda") -> dict:
+    """Phase 11a: block 0 of the phase-4 scenario at the product grid on a
+    (2, 4) mesh and at the +-10 kHz grid on (4, 2), against the
+    unsharded acquire_impl; the scenario's PRNs are found."""
+    import torch
+
+    import tempfile
+
+    from gps_sdr_tpu_torch.utils import profiling
+
+    out = {}
+    wide = cfg.replace(min_freq=-10000.0, max_freq=10000.0)
+    for tag, c, ts in (("product", cfg, 2), ("wide", wide, 4)):
+        for devices in mesh_device_sets(8, dev):
+            t0 = time.perf_counter()
+            with tempfile.TemporaryDirectory() as tmp:
+                with profiling.trace(tmp):
+                    res = check_acquire_sharded(c, block, devices, ts)
+                    _sync(dev)
+                busy = profiling.device_time_from_trace(tmp)
+                top = profiling.op_breakdown_from_trace(tmp, 3)
+            wall = time.perf_counter() - t0
+            if busy["lane"] != ("host" if dev == "cpu" else "device"):
+                raise AssertionError(f"the trace holds no device event: "
+                                     f"{busy}")
+            found = found_list(res, c.prns)
+            prns = sorted(f[1] for f in found)
+            log(f"[11a] {tag} grid ({len(c.doppler_bins)} bins x "
+                f"{len(c.prns)} PRNs) on a ({ts}, {8 // ts}) mesh of "
+                f"{devices[0]}..{devices[-1]}: = unsharded; found {prns}; "
+                f"wall {wall * 1e3:.1f} ms with the profiler, sharded and "
+                f"unsharded; device busy {busy['busy_s'] * 1e3:.3f} ms over "
+                f"{busy['n_ops']} device events on {busy['n_lanes']} "
+                f"lane(s); top (name, ms, count) "
+                f"{[(n[:40], round(t * 1e3, 3), k) for n, t, k in top]}")
+            if prns != truth:
+                raise AssertionError(f"sharded acquisition found {prns}, "
+                                     f"the scenario has {truth}")
+            out.setdefault(tag, found)
+    return out
+
+
+def decode_fix(cfg, found, blocks, outs, stream0: int = 1):
+    """The receiver's own consume pipeline (Receiver._consume_chunk, one
+    chunk of no_sec blocks at a time) and an Evaluator on tracking
+    outputs of the channel slots that `found` fills: (the decoded
+    subframes as a set of their nav fields, the evaluator).  Bits are
+    framed by absolute sample time (NavDecoder ms_from_st), so a stitch
+    seam's ms_time restart cannot move them (examples/scaling_sweep.py
+    decode_fix)."""
+    from gps_sdr_tpu_torch.models.navmsg import NavDecoder
+    from gps_sdr_tpu_torch.ops.tracking import ChannelOut, outs_to_numpy
+    from gps_sdr_tpu_torch.runtime.evaluator import Evaluator
+    from gps_sdr_tpu_torch.runtime.receiver import Receiver
+
+    rx = Receiver(cfg, device="cpu")
+    rx._serve_sweep_all(None, found=found)
+    rx.decoders = {slot: NavDecoder(ngps=cfg.ngps,
+                                    ms_from_st=cfg.code_samples)
+                   for slot in rx.decoders}
+    host = outs_to_numpy(outs)
+    host = ChannelOut(*(x[:, :cfg.max_sat] for x in host))
+    ev = Evaluator(cfg)
+    epochs = []
+    t = cfg.no_sec
+    for c0 in range(0, host.code_phase.shape[0], t):
+        part = ChannelOut(*(x[c0:c0 + t] for x in host))
+        epochs.append(rx._consume_chunk(blocks[c0:c0 + t], part,
+                                        stream0 + c0, 0))
+        ev.process(epochs[-1])
+    frames, _ = _stream_record(epochs)
+    return frames, ev
+
+
+def _fix_positions(ev) -> dict:
+    import numpy as np
+
+    return {round(p[0], 3): np.asarray(p[1:4]) for p in ev.positions}
+
+
+def run_sharded_tracking(cfg, scn, blocks, found, dev="cuda",
+                         n_blocks: int = TRACK_BLOCKS,
+                         grid=HANDOFF_GRID) -> dict:
+    """Phase 11b: TRACK_BLOCKS blocks of the phase-4 scenario (blocks
+    1.., as a receiver tracks after its cold sweep on block 0) from the
+    11 slots that 11a's acquisitions fill, padded to 12 over ch 2:
+    the sequential K=1 scan (track_chunk_impl) on the card, then the
+    exact stitch on a (2, 2) mesh against it (code_phase atol 1e-4, freq
+    atol 1e-3, locked and edge_valid exact, final freq/phase atol 1e-3:
+    tests/test_parallel.py), both through decode_fix (the sequential
+    run: >= 4 ephemerides and a mean fix within 8 m; the stitched run:
+    the same subframes and fixes within 1e-3 m epoch by epoch); then the
+    state handoff at HANDOFF_GRID on (n, 1) meshes, each row's lost
+    subframes, fixes, mean error and median separation from the
+    sequential fixes logged."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from gps_sdr_tpu_torch.ops.tracking import track_chunk_impl
+    from gps_sdr_tpu_torch.parallel import (make_mesh, pad_channels,
+                                            track_sharded)
+    from gps_sdr_tpu_torch.runtime.receiver import Receiver
+    from gps_sdr_tpu_torch.utils import profiling
+
+    rx = Receiver(cfg, device=dev)
+    rx._serve_sweep_all(None, found=found)
+    states, codes, ffts = rx.states, rx._codes_dev, rx._ffts_dev
+    tb = np.ascontiguousarray(blocks[1:1 + n_blocks])
+    sig_sec = n_blocks * cfg.block_sec
+    out = {}
+
+    def timed(fn):
+        with sub_phase(None, dev) as span:
+            res = fn()
+        return res, span["wall_s"], span["event_ms"]
+
+    blocks_dev = torch.as_tensor(tb).to(dev)
+    (seq_final, seq), wall, ev_ms = timed(lambda: track_chunk_impl(
+        cfg, states, blocks_dev, 1, codes, ffts))
+    # the scan's device time: 32 of its blocks again under the profiler
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp):
+            track_chunk_impl(cfg, states, blocks_dev[:32], 1, codes, ffts)
+            _sync(dev)
+        busy = profiling.device_time_from_trace(tmp)
+    del blocks_dev
+    out["scan_ms_per_block"] = wall * 1e3 / n_blocks
+    out["scan_event_ms_per_block"] = ev_ms / n_blocks
+    out["scan_busy_ms_per_block"] = busy["busy_s"] * 1e3 / 32
+    out["scan_ops_per_block"] = busy["n_ops"] / 32
+    seq_frames, seq_ev = decode_fix(cfg, found, tb, seq)
+    summ = _ev_summary(seq_ev)
+    err = _check_fix("11b sequential", scn, rx, summ)
+    seq_pos = _fix_positions(seq_ev)
+    n_bytes = sum(x.element_size() * x[:1].numel() for x in states)
+    out.update(seq_err_m=err, seq_fixes=len(seq_pos),
+               subframes=len(seq_frames), state_bytes_per_channel=n_bytes)
+    log(f"[11b] sequential K=1 scan of {n_blocks} blocks x "
+        f"{cfg.max_sat} slots ({len(found)} active): wall {wall:.3f} s = "
+        f"{out['scan_ms_per_block']:.3f} ms a block, CUDA-event span "
+        f"{ev_ms:.1f} ms; {busy['lane']} busy "
+        f"{out['scan_busy_ms_per_block']:.4f} ms a block over "
+        f"{out['scan_ops_per_block']:.1f} {busy['lane']} events (32 blocks "
+        f"profiled); {len(seq_frames)} subframes, {len(seq_pos)} fixes, "
+        f"mean error {err:.3f} m")
+
+    def host(x):
+        return x[:, :cfg.max_sat].cpu().numpy()
+
+    for devices in mesh_device_sets(4, dev):
+        mesh = make_mesh(4, 2, devices)
+        st12, co12, ff12 = pad_channels(states, codes, ffts,
+                                        mesh.shape["ch"])
+        (final, got), wall, ev_ms = timed(lambda: track_sharded(
+            cfg, mesh, st12, tb, 1, co12, ff12))
+        for name, atol in (("code_phase", 1e-4), ("freq", 1e-3)):
+            np.testing.assert_allclose(host(getattr(got, name)),
+                                       host(getattr(seq, name)), atol=atol,
+                                       err_msg=name)
+        for name in ("locked", "edge_valid"):
+            if not np.array_equal(host(getattr(got, name)),
+                                  host(getattr(seq, name))):
+                raise AssertionError(f"exact stitch: {name} differs from "
+                                     "the sequential scan")
+        for name in ("freq", "phase"):
+            np.testing.assert_allclose(
+                getattr(final, name)[:cfg.max_sat].cpu().numpy(),
+                getattr(seq_final, name).cpu().numpy(), atol=1e-3,
+                err_msg=f"final {name}")
+        frames, ev = decode_fix(cfg, found, tb, got)
+        pos = _fix_positions(ev)
+        if frames != seq_frames:
+            raise AssertionError(f"exact stitch decoded {len(frames)} "
+                                 f"subframes, the sequential scan "
+                                 f"{len(seq_frames)}; "
+                                 f"{len(frames ^ seq_frames)} differ")
+        if pos.keys() != seq_pos.keys():
+            raise AssertionError(f"exact stitch fixed {len(pos)} epochs, "
+                                 f"the sequential scan {len(seq_pos)}")
+        sep = max((float(np.linalg.norm(pos[k] - seq_pos[k]))
+                   for k in pos), default=0.0)
+        if not sep <= 1e-3:
+            raise AssertionError(f"exact-stitch fixes {sep:.3g} m from "
+                                 "the sequential scan's")
+        log(f"[11b] exact stitch on a (2, 2) mesh of {devices[0]}.."
+            f"{devices[-1]} (n_stitch 2, 12 slots): = sequential within "
+            f"tolerance; {len(frames)} subframes identical, {len(pos)} "
+            f"fixes within {sep:.3g} m; wall {wall:.3f} s "
+            f"({sig_sec / wall:.2f}x realtime), CUDA-event span "
+            f"{ev_ms:.1f} ms; handoff {n_bytes} bytes a channel, "
+            f"{n_bytes * st12.prn.shape[0]} a boundary")
+        out.setdefault("exact_wall_s", wall)
+
+    rows = []
+    t_grid = time.perf_counter()
+    for n_sh, warm in grid:
+        mesh = make_mesh(n_sh, n_sh, mesh_device_sets(n_sh, dev)[0])
+        (_, got), wall, _ = timed(lambda: track_sharded(
+            cfg, mesh, states, tb, 1, codes, ffts, warmup_blocks=warm))
+        frames, ev = decode_fix(cfg, found, tb, got)
+        pos = _fix_positions(ev)
+        stat = ev.stat
+        err = (float(np.linalg.norm(stat[0] - scn.rec_ecef))
+               if stat is not None else float("nan"))
+        common = sorted(pos.keys() & seq_pos.keys())
+        sep = (float(np.median([np.linalg.norm(pos[k] - seq_pos[k])
+                                for k in common]))
+               if common else float("nan"))
+        rows.append(dict(time_shards=n_sh, warmup_blocks=warm,
+                         subframes_lost=len(seq_frames - frames),
+                         fixes=len(pos), err_m=err, median_sep_m=sep,
+                         wall_s=wall))
+        log(f"[11b] handoff {n_sh} shards, warmup {warm}: subframes lost "
+            f"{rows[-1]['subframes_lost']}, fixes {len(pos)}, mean error "
+            f"{err:.3f} m, median separation from sequential {sep:.3g} m; "
+            f"wall {wall:.3f} s")
+    ok = [r for r in rows if r["subframes_lost"] == 0]
+    best = min(ok, key=lambda r: (r["warmup_blocks"], r["time_shards"]),
+               default=None)
+    log(f"[11b] handoff grid {time.perf_counter() - t_grid:.1f} s; smallest "
+        f"warmup with no lost subframe: "
+        f"{best['warmup_blocks'] if best else 'none'}")
+    out["handoff"] = rows
+    out.update(states=states, codes=codes, ffts=ffts, seq=seq,
+               seq_final=seq_final)
+    return out
+
+
+def epochs_equal(a, b) -> None:
+    """tests/test_serving.py _epochs_equal: the skipped samples, the code
+    phases (within 1e-5) and the frames' SAT and tow of two epochs."""
+    import numpy as np
+    from gps_sdr_tpu_torch.utils.cplist import cp_arrays
+
+    if a.skipped_samples != b.skipped_samples:
+        raise AssertionError("skipped samples differ")
+    if sorted(a.code_phases) != sorted(b.code_phases):
+        raise AssertionError(f"code-phase PRNs {sorted(a.code_phases)} != "
+                             f"{sorted(b.code_phases)}")
+    for prn in a.code_phases:
+        sa, va = cp_arrays(a.code_phases[prn])
+        sb, vb = cp_arrays(b.code_phases[prn])
+        np.testing.assert_array_equal(sa, sb)
+        np.testing.assert_allclose(va, vb, atol=1e-5)
+    if len(a.frames) != len(b.frames):
+        raise AssertionError(f"{len(a.frames)} frames != {len(b.frames)}")
+    for fa, fb in zip(a.frames, b.frames):
+        if (fa.get("SAT"), fa.get("tow")) != (fb.get("SAT"), fb.get("tow")):
+            raise AssertionError(f"frame SAT/tow {fa.get('SAT')}/"
+                                 f"{fa.get('tow')} != {fb.get('SAT')}/"
+                                 f"{fb.get('tow')}")
+
+
+def run_sharded_serving(base_cfg, ref7b, ref7c) -> dict:
+    """Phase 11c: phase 7b's replicas (kernel 1) over a stream mesh of 4
+    and phase 7c's independent front ends (kernel 2) over a stream mesh
+    of 3: each stream's epochs equal the unsharded server's of phase 7
+    (epochs_equal), phase 7b's fix bars, one launch of the wipeoff kernel
+    and of cheap per group per K-step; then the replicas saved halfway
+    (save_server), resumed by load_server(mesh=...) and run on: the code
+    phases and subframes of the uninterrupted sharded run, exactly."""
+    import tempfile
+
+    from gps_sdr_tpu_torch.models.scenario import make_scenario
+    from gps_sdr_tpu_torch.models.scenario_dev import DeviceScenarioSynth
+    from gps_sdr_tpu_torch.parallel.mesh import make_stream_mesh
+    from gps_sdr_tpu_torch.runtime import checkpoint
+
+    out = {}
+    cfg7b = base_cfg.replace(chunks_per_download=16,
+                             download_windows_in_flight=4,
+                             defer_subframe_poll=True, epoch_per_window=True)
+    cfg7c = base_cfg.replace(use_mxu_wipeoff=False, chunks_per_download=8,
+                             download_windows_in_flight=4,
+                             defer_subframe_poll=True, epoch_per_window=True)
+    t = base_cfg.no_sec
+    n_chunks = int(round(SLICE_SEC / base_cfg.block_sec)) // t
+    sig_sec = n_chunks * t * base_cfg.block_sec
+    scn = make_scenario(cfg7b, n_sats=N_SATS, seed=SEED,
+                        duration_sec=SLICE_SEC + 12.0)
+    synth = DeviceScenarioSynth(scn, noise_std=NOISE, knot_interp_step=0.1,
+                                device="cuda")
+    scns = [make_scenario(cfg7c, n_sats=N_SATS, seed=sd,
+                          duration_sec=SLICE_SEC + 12.0) for sd in (3, 5, 7)]
+    synths = [DeviceScenarioSynth(sc, noise_std=NOISE, knot_interp_step=0.1,
+                                  device="cuda") for sc in scns]
+    cases = (("replicas", cfg7b, 8, 4, synth.chunk_planar, [scn] * 8,
+              "wipeoff", ref7b),
+             ("independent", cfg7c, 3, 3, [s.chunk_planar for s in synths],
+              scns, "wipeoff_vpu", ref7c))
+    for tag, cfg, n_st, n_dev, provs, case_scns, name, ref in cases:
+        for devices in mesh_device_sets(n_dev):
+            mesh = make_stream_mesh(n_dev, devices)
+            srv, evs, wall, kept, _ = serve(cfg, n_st, provs, n_chunks,
+                                            keep_epochs=range(n_st),
+                                            mesh=mesh)
+            launches = _read_launches()
+            _check_streams("11c", case_scns, srv, evs, launches, wall,
+                           sig_sec, name, groups=n_dev)
+            for s in range(n_st):
+                if len(kept[s]) != len(ref["epochs"][s]) or not kept[s]:
+                    raise AssertionError(f"stream {s}: {len(kept[s])} "
+                                         f"epochs sharded, "
+                                         f"{len(ref['epochs'][s])} not")
+                for a, b in zip(kept[s], ref["epochs"][s]):
+                    epochs_equal(a, b)
+            rtf = n_st * sig_sec / wall
+            log(f"[11c] {tag}: {n_st} streams over a stream mesh of "
+                f"{n_dev} ({devices[0]}..{devices[-1]}), each stream's "
+                f"epochs = the unsharded server's; {rtf:.2f}x aggregate "
+                f"realtime against {ref['rtf']:.2f}x unsharded (phase 7)")
+            out.setdefault(tag, dict(launches=launches, rtf=rtf,
+                                     wall_s=wall, perf=dict(srv.perf),
+                                     kept=kept))
+    # save halfway, resume over the mesh, run on
+    rep = out["replicas"]
+    half = n_chunks // 2
+    mesh = make_stream_mesh(4, ["cuda:0"] * 4)
+    s1, evs1, _, kept1, _ = serve(cfg7b, 8, synth.chunk_planar, half,
+                                  keep_epochs=range(8), mesh=mesh)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "server.pkl")
+        checkpoint.save_server(s1, evs1, path)
+        s2, evs2 = checkpoint.load_server(path, "cuda", mesh=mesh)
+    off = half * t
+    _, _, _, kept2, _ = serve(
+        cfg7b, 8, lambda f, n: synth.chunk_planar(f + off, n),
+        n_chunks - half, keep_epochs=range(8), server=(s2, evs2))
+    for s in range(8):
+        want = _stream_record(rep["kept"][s])
+        got = _stream_record(kept1[s] + kept2[s])
+        if got != want:
+            raise AssertionError(f"stream {s}: the resumed run's subframes "
+                                 "or code phases differ from the "
+                                 "uninterrupted sharded run's")
+    log(f"[11c] replicas saved after {half} chunks, resumed by "
+        f"load_server(mesh=stream mesh of 4) and run on: every stream's "
+        f"subframes and code phases = the uninterrupted sharded run's")
+    for v in out.values():
+        v.pop("kept")
+    return out
+
+
+def free_tcp_port() -> int:
+    """A TCP port the OS has free on localhost."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_child(port: int, rank: int, n_proc: int, devices: list,
+               job_dir: str) -> int:
+    """One rank of a multi-process mesh (make_multihost_mesh on
+    tcp://127.0.0.1:port, `devices` this rank's): runs the job in
+    job_dir (job.pkl and blocks.npy, written by run_mesh_processes) -
+    track_sharded, exact, and acquire_sharded - and writes what it
+    returned, its backend, wall and modules to result_<rank>.pkl."""
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from gps_sdr_tpu_torch.ops.tracking import (outs_to_numpy,
+                                                states_from_numpy,
+                                                states_to_numpy)
+    from gps_sdr_tpu_torch.parallel import acquire_sharded, track_sharded
+    from gps_sdr_tpu_torch.parallel.mesh import make_multihost_mesh
+
+    with open(os.path.join(job_dir, "job.pkl"), "rb") as f:
+        job = pickle.load(f)
+    blocks = np.load(os.path.join(job_dir, "blocks.npy"))
+    mesh = make_multihost_mesh(f"127.0.0.1:{port}", n_proc, rank,
+                               time_shards=job["time_shards"],
+                               devices=devices)
+    try:
+        cfg = job["cfg"]
+        states = states_from_numpy(job["states"], mesh.home)
+        t0 = time.perf_counter()
+        final, outs = track_sharded(cfg, mesh, states, blocks,
+                                    job["stream_no0"], job["codes"],
+                                    job["ffts"])
+        acq = acquire_sharded(cfg, mesh, job["acq_block"], job["dopplers"],
+                              job["acq_ffts"])
+        if mesh.home.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res = {"final": states_to_numpy(final),
+               "outs": outs_to_numpy(outs)._asdict(),
+               "acq": acq._asdict(), "backend": mesh.backend,
+               "mesh": dict(mesh.shape), "wall_s": wall,
+               "foreign": sorted(m for m in sys.modules if m.split(".")[0]
+                                 in ("jax", "gps_sdr_tpu"))}
+        with open(os.path.join(job_dir, f"result_{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_mesh_processes(job: dict, blocks, devices: list, job_dir: str,
+                       timeout: float = 120.0, meanwhile=None) -> list:
+    """Run mesh_child in one child process a rank, rank r with the device
+    list devices[r], on a free TCP port, and `meanwhile()` (if given) in
+    this process while they start; returns their results in rank order.
+    The children are killed in a `finally`, so none outlives a
+    failure."""
+    import pickle
+
+    import numpy as np
+
+    with open(os.path.join(job_dir, "job.pkl"), "wb") as f:
+        pickle.dump(job, f)
+    np.save(os.path.join(job_dir, "blocks.npy"), blocks)
+    port = free_tcp_port()
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    procs = []
+    try:
+        for rank, devs in enumerate(devices):
+            code = ("import sys\nimport chip_smoke\n"
+                    f"sys.exit(chip_smoke.mesh_child({port}, {rank}, "
+                    f"{len(devices)}, {list(devs)!r}, {job_dir!r}))\n")
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code], cwd=ROOT, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        if meanwhile is not None:
+            meanwhile()
+        deadline = time.monotonic() + timeout
+        outs = []
+        for rank, p in enumerate(procs):
+            left = max(1.0, deadline - time.monotonic())
+            text, _ = p.communicate(timeout=left)
+            outs.append(text)
+            if p.returncode != 0:
+                raise AssertionError(f"mesh rank {rank} exited "
+                                     f"{p.returncode}:\n{text}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for rank, text in enumerate(outs):
+        with open(os.path.join(job_dir, f"result_{rank}.pkl"), "rb") as f:
+            results.append(dict(pickle.load(f), log=text))
+    return results
+
+
+def mesh_job(cfg, states, codes, ffts, acq_block, time_shards: int) -> dict:
+    """The multi-process job: track the blocks (blocks.npy) from `states`
+    at stream number 1, and acquire acq_block at cfg's grid."""
+    import numpy as np
+    from gps_sdr_tpu_torch.ops import cacode
+    from gps_sdr_tpu_torch.ops.tracking import states_to_numpy
+
+    return {"cfg": cfg, "states": states_to_numpy(states),
+            "codes": np.asarray(codes.cpu()), "ffts": np.asarray(ffts.cpu()),
+            "stream_no0": 1, "time_shards": time_shards,
+            "acq_block": np.asarray(acq_block),
+            "dopplers": cfg.doppler_bins.astype(np.float32),
+            "acq_ffts": cacode.ca_fft_table(cfg)[np.asarray(cfg.prns)]}
+
+
+def check_mesh_results(results, final, outs, acq, atol_cp=1e-4,
+                       atol_freq=1e-3) -> None:
+    """Every rank's results against the in-process mesh's (final state,
+    outs) and acquisition: tracking at 11b's tolerances (code_phase,
+    freq; locked and edge_valid exact; final freq/phase 1e-3), the
+    acquisition's found/delay/freq exact and norm_max rtol 2e-5; no
+    rank holds a module of jax or gps_sdr_tpu."""
+    import numpy as np
+    from gps_sdr_tpu_torch.ops.tracking import outs_to_numpy, states_to_numpy
+
+    want = outs_to_numpy(outs)._asdict()
+    want_final = states_to_numpy(final)
+    for rank, r in enumerate(results):
+        if r["foreign"]:
+            raise AssertionError(f"rank {rank} loaded {r['foreign']}")
+        for name, atol in (("code_phase", atol_cp), ("freq", atol_freq)):
+            np.testing.assert_allclose(r["outs"][name], want[name],
+                                       atol=atol, err_msg=name)
+        for name in ("locked", "edge_valid"):
+            np.testing.assert_array_equal(r["outs"][name], want[name],
+                                          err_msg=name)
+        for name in ("freq", "phase"):
+            np.testing.assert_allclose(r["final"][name], want_final[name],
+                                       atol=1e-3, err_msg=f"final {name}")
+        for name in ("found", "delay", "freq"):
+            np.testing.assert_array_equal(r["acq"][name],
+                                          getattr(acq, name),
+                                          err_msg=f"acquisition {name}")
+        np.testing.assert_allclose(r["acq"]["norm_max"], acq.norm_max,
+                                   rtol=2e-5)
+
+
+def run_mesh_slice(cfg, blocks, trk, found, dev="cuda",
+                   n_blocks: int = MP_BLOCKS) -> dict:
+    """Phase 11d: two child processes on the card, each rank a mesh of
+    cuda:0 x 2 (gloo), a global (2, 2) mesh: track_sharded (exact) on the
+    first n_blocks of 11b's blocks and acquire_sharded on block 0,
+    against the in-process (2, 2) mesh's outputs, and the acquisition's
+    found PRNs, Doppler bins and delays against 11a's (`found`)."""
+    import tempfile
+
+    import numpy as np
+    from gps_sdr_tpu_torch.parallel import (acquire_sharded, make_mesh,
+                                            pad_channels, track_sharded)
+
+    tb = np.ascontiguousarray(blocks[1:1 + n_blocks])
+    mesh = make_mesh(4, 2, mesh_device_sets(4, dev)[0])
+    st12, co12, ff12 = pad_channels(trk["states"], trk["codes"],
+                                    trk["ffts"], mesh.shape["ch"])
+    job = mesh_job(cfg, st12, co12, ff12, blocks[0], 2)
+    ref = {}
+
+    def in_process():
+        # while the children import torch and reach the card
+        with sub_phase(None, dev) as span:
+            ref["track"] = track_sharded(cfg, mesh, st12, tb, 1, co12, ff12)
+            ref["acq"] = acquire_sharded(cfg, mesh, blocks[0],
+                                         job["dopplers"], job["acq_ffts"])
+        ref["wall_s"] = span["wall_s"]
+
+    # every rank cuda:0 x 2 (gloo: two ranks on one card); with more
+    # cards also one pair of distinct cards a rank (nccl)
+    sets = [[d[:2], d[2:]] for d in mesh_device_sets(4, dev)]
+    out = {}
+    for i, ranks in enumerate(sets):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            results = run_mesh_processes(
+                job, tb, ranks, tmp, meanwhile=in_process if i == 0 else None)
+        wall_mp = time.perf_counter() - t0
+        (final, outs), acq = ref["track"], ref["acq"]
+        check_mesh_results(results, final, outs, acq)
+        got = [f[1:] for f in found_list(acq, cfg.prns)]
+        if got != [f[1:] for f in found]:
+            raise AssertionError(f"(2, 2) acquisition {got} != 11a's "
+                                 f"{found}")
+        log(f"[11d] 2 processes, devices {ranks}, backend "
+            f"{[r['backend'] for r in results]}, global mesh "
+            f"{results[0]['mesh']}: track_sharded of {n_blocks} blocks and "
+            f"acquire_sharded = the in-process (2, 2) mesh's; ranks' work "
+            f"{[round(r['wall_s'], 3) for r in results]} s against "
+            f"{ref['wall_s']:.3f} s in process (run while the first "
+            f"children started); {wall_mp:.1f} s in all; no jax or "
+            f"gps_sdr_tpu module in either child")
+        out.setdefault("wall_ranks_s", [r["wall_s"] for r in results])
+    return dict(out, wall_in_process_s=ref["wall_s"])
+
+
+# --------------------------------------------------------------------------
 
 
 def _kernel_entry(name, source, replaces, launches, res) -> dict:
@@ -2454,9 +3152,23 @@ def main() -> int:
 
     # 10. the host slice, then the cheap kernel at n_cyc 64
     t10 = time.perf_counter()
-    hs = run_host_slice(cfg, sl.pop("scn"), sl.pop("blocks"), build_s=secs)
+    scn, blocks = sl.pop("scn"), sl.pop("blocks")
+    hs = run_host_slice(cfg, scn, blocks, build_s=secs)
     c64 = run_cheap_ncyc64(cfg, dev)
     log(f"[10] phase 10 took {time.perf_counter() - t10:.1f} s")
+
+    # 11. the sharding slice
+    t11 = time.perf_counter()
+    truth = sorted(s.prn for s in scn.sats)
+    with sub_phase("11a"):
+        acq = run_sharded_acquisition(cfg, blocks[0], truth)
+    with sub_phase("11b"):
+        trk = run_sharded_tracking(cfg, scn, blocks, acq["product"])
+    with sub_phase("11c"):
+        ss = run_sharded_serving(cfg, sv, ind)
+    with sub_phase("11d"):
+        run_mesh_slice(cfg, blocks, trk, acq["product"])
+    log(f"[11] phase 11 took {time.perf_counter() - t11:.1f} s")
 
     kernels = [
         _kernel_entry("wipeoff", "wipeoff.cu",
@@ -2492,6 +3204,12 @@ def main() -> int:
             entry[f"cs16384_ch{n_ch}"] = {
                 key: r[key] for key in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by")}
+    for entry in kernels:
+        entry["launches_sharded_serving"] = {
+            "replicas_8_streams_4_groups":
+                ss["replicas"]["launches"][entry["name"]],
+            "independent_3_streams_3_groups":
+                ss["independent"]["launches"][entry["name"]]}
     for entry in (kernels[0], kernels[2]):
         entry["launches_two_process"] = {
             "recv": hs["two_process"]["launches"][entry["name"]],

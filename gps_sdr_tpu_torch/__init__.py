@@ -29,8 +29,18 @@ noted:
                                (device-resident)
   runtime/session.py           Session
   runtime/serving.py           StreamServer: S receivers on one card,
-                               the stream axis in the kernels' grids
+                               the stream axis in the kernels' grids,
+                               or split over a stream mesh
   runtime/checkpoint.py        session and server checkpoints
+  parallel/                    device meshes (mesh.py: time x ch and
+                               stream meshes, one device repeatable,
+                               multi-process over torch.distributed),
+                               sharded acquisition (acquisition.py) and
+                               time/channel-sharded tracking with exact
+                               or state-handoff stitching (tracking.py)
+  utils/profiling.py           RateMeter; trace() over torch.profiler
+                               and the trace's device time and per-op
+                               breakdown
   runtime/transport.py         the two-process topology's UDP wire
                                (the JAX package's pickle format)
   runtime/buffer.py            block buffers (deque, native ring)
@@ -47,7 +57,7 @@ modules, at the same relative paths, with their imports pointed here:
 config, models/{almanac,atmosphere,ephemeris,navmsg,orbits,pseudorange,
 scenario,simulator}, ops/{cacode,pvt}, runtime/{channelmgr,evaluator,
 trackfilter,sources}, utils/{cplist,geodesy,gpstime,io,tuplelog},
-utils/profiling (RateMeter only), ui/{headless,webmap}.  The native host
+ui/{headless,webmap}.  The native host
 core is ported too: csrc/{evalcore,navscan,ingest}.cpp (copies of the
 JAX package's C++), built by g++ at first use (nativecore.py) and bound
 in _evalcore.py, models/_navscan.py and runtime/_native.py; the copies

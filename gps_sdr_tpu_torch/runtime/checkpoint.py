@@ -130,9 +130,11 @@ def save_server(server, evaluators: list, path: str) -> None:
 
 
 def load_server(path: str, device="cuda", mesh=None):
-    """Rebuild (StreamServer, evaluators) on `device` from a save_server
-    checkpoint; every stream resumes where it left off (the stacked
-    device state is rebuilt on the next run)."""
+    """Rebuild (StreamServer, evaluators) on `device`, or over the
+    devices of a stream mesh (parallel/mesh.py make_stream_mesh), from a
+    save_server checkpoint; every stream resumes where it left off (the
+    stacked device states are rebuilt on the next run).  The mesh need
+    not be the one the server was saved from."""
     from gps_sdr_tpu_torch.runtime.serving import StreamServer
 
     p = _load(path)

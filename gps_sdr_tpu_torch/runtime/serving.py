@@ -11,18 +11,26 @@ with the streams on its grid's z axis, and one cheap launch over the
 S*C channels, whatever S is.  The packed outputs of all streams cross
 to the host as one pinned copy per download window.
 
+With a stream mesh (parallel/mesh.py make_stream_mesh) the streams
+split into contiguous groups, one a mesh device: each group keeps its
+own stacked state, codes and FFTs on its device, a K-step runs one
+wipeoff and one cheap launch a group, and each group's packed rows
+cross to the host as one pinned copy a window, joined there in stream
+order.  Streams share no state, so the split gives the same bits.
+
 The device loop mirrors Receiver.run_device (fused or per-chunk
 dispatch, windowed downloads in flight); host-side channel management
 (the cold-start sweep, per-channel re-sweeps) runs per stream and
 scatters its slot updates back into the stacked state.  Where the JAX
 module indexes a stacked window through _WindowChunk, a torch window is
-indexed by a view (win[i], win[i, s]).
+indexed by a view (win[i] of the shared window or of a stream's own).
 """
 
 from __future__ import annotations
 
 import time
 
+import numpy as np
 import torch
 
 from gps_sdr_tpu_torch.config import ReceiverConfig
@@ -37,21 +45,53 @@ from gps_sdr_tpu_torch.runtime.receiver import (Receiver, _DeviceChunk,
                                                 _Download, _download_block)
 
 
+class _GroupDownload:
+    """The stream groups' packed rows [w', S_g, L] in flight, one pinned
+    copy a group; result() joins them on the host in stream order."""
+
+    def __init__(self, parts: list):
+        self.parts = [_Download(p) for p in parts]
+
+    def result(self) -> np.ndarray:
+        if len(self.parts) == 1:
+            return self.parts[0].result()
+        return np.concatenate([p.result() for p in self.parts], axis=1)
+
+
 class StreamServer:
-    """Serve S independent receivers from one card."""
+    """Serve S independent receivers from one card, or from the devices
+    of a stream mesh."""
 
     def __init__(self, cfg: ReceiverConfig, n_streams: int, device="cuda",
                  mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharding the stream axis over a device mesh is not yet "
-                "ported to PyTorch")
+        """mesh: optional one-axis stream mesh
+        (parallel.mesh.make_stream_mesh) to split the streams over its
+        devices in contiguous groups, one a device; n_streams must divide
+        by its size, and the streams then live on the mesh's devices
+        (`device` is not used)."""
         self.cfg = cfg
-        self.device = resolve_device(device)
-        self.receivers = [Receiver(cfg, device=self.device)
-                          for _ in range(n_streams)]
-        self._stacked = None        # ChannelState with leading [S]
-        self._codes_dev = None      # [S, C, cs]
+        if mesh is None:
+            devs = [resolve_device(device)]
+        else:
+            from gps_sdr_tpu_torch.parallel.mesh import STREAM_AXIS
+            if mesh.axis_names != (STREAM_AXIS,):
+                raise ValueError(f"a stream mesh has the one axis "
+                                 f"({STREAM_AXIS!r},), not "
+                                 f"{mesh.axis_names}")
+            if n_streams % mesh.shape[STREAM_AXIS]:
+                raise ValueError(
+                    f"{n_streams} streams not divisible over "
+                    f"{mesh.shape[STREAM_AXIS]} devices")
+            devs = list(mesh.devices)
+        self.device = devs[0]
+        self._per = n_streams // len(devs)      # streams a group
+        self._group_devs = devs
+        self.receivers = [Receiver(cfg, device=devs[s // self._per])
+                          for s in range(n_streams)]
+        # per group, on its device: the stacked ChannelState with leading
+        # [S_g] and the codes and FFTs [S_g, C, cs]
+        self._stacked = None
+        self._codes_dev = None
         self._ffts_dev = None
         self.perf: dict = {}
 
@@ -59,30 +99,62 @@ class StreamServer:
     def n_streams(self) -> int:
         return len(self.receivers)
 
+    def _group_streams(self, g: int) -> range:
+        return range(g * self._per, (g + 1) * self._per)
+
     def _restack(self) -> None:
-        rs = self.receivers
-        self._stacked = ChannelState(*(torch.stack(f) for f in
-                                       zip(*[r.states for r in rs])))
-        self._codes_dev = torch.stack([r._codes_dev for r in rs])
-        self._ffts_dev = torch.stack([r._ffts_dev for r in rs])
+        groups = [[self.receivers[s] for s in self._group_streams(g)]
+                  for g in range(len(self._group_devs))]
+        self._stacked = [ChannelState(*(torch.stack(f) for f in
+                                        zip(*[r.states for r in rs])))
+                         for rs in groups]
+        self._codes_dev = [torch.stack([r._codes_dev for r in rs])
+                           for rs in groups]
+        self._ffts_dev = [torch.stack([r._ffts_dev for r in rs])
+                          for rs in groups]
 
     def _slice_stream(self, s: int) -> ChannelState:
-        """Stream s's state: views into the stack (every step makes new
-        tensors, and _scatter_stream writes into copies, so a view stays
-        the state it was taken of)."""
-        return ChannelState(*(x[s] for x in self._stacked))
+        """Stream s's state: views into its group's stack (every step
+        makes new tensors, and _scatter_stream writes into copies, so a
+        view stays the state it was taken of)."""
+        g, r = divmod(s, self._per)
+        return ChannelState(*(x[r] for x in self._stacked[g]))
 
     def _scatter_stream(self, s: int) -> None:
-        """Push receiver s's (host-managed) state back into the stack."""
+        """Push receiver s's (host-managed) state back into its group's
+        stack."""
+        g, r = divmod(s, self._per)
+
         def put(big, x):
             big = big.clone()
-            big[s] = x
+            big[r] = x
             return big
         rec = self.receivers[s]
-        self._stacked = ChannelState(*(put(b, x) for b, x in
-                                       zip(self._stacked, rec.states)))
-        self._codes_dev = put(self._codes_dev, rec._codes_dev)
-        self._ffts_dev = put(self._ffts_dev, rec._ffts_dev)
+        self._stacked[g] = ChannelState(*(put(b, x) for b, x in
+                                          zip(self._stacked[g], rec.states)))
+        self._codes_dev[g] = put(self._codes_dev[g], rec._codes_dev)
+        self._ffts_dev[g] = put(self._ffts_dev[g], rec._ffts_dev)
+
+    def _track(self, fn, blocks: list, shared: bool, stream_dim: int,
+               stream0: int, *extra):
+        """Run `fn` (track_streams_impl or track_streams_window_impl) on
+        every group, on its device: `blocks` holds the one chunk or
+        window every stream reads (shared), or one a stream, stacked on
+        `stream_dim` for the group.  Returns the groups' second results
+        (outputs or packed rows), in stream order."""
+        outs = []
+        for g, dev in enumerate(self._group_devs):
+            if shared:
+                x = blocks[0].to(dev)
+            else:
+                x = torch.stack([blocks[s].to(dev)
+                                 for s in self._group_streams(g)],
+                                dim=stream_dim)
+            self._stacked[g], out = fn(
+                self.cfg, self._stacked[g], x, stream0, self._codes_dev[g],
+                self._ffts_dev[g], *extra, shared)
+            outs.append(out)
+        return outs
 
     def run(self, providers, n_chunks: int,
             chunk_blocks: int | None = None):
@@ -115,15 +187,16 @@ class StreamServer:
         w = max(1, cfg.chunks_per_download)
         inflight = max(1, cfg.download_windows_in_flight)
         with_freq = cfg.carrier_smoothing > 0
-        held = []                 # [(chunks, packed [S, L], stream0)]
-        windows = []              # [(items [(chunks, stream0)], _Download)]
+        held = []     # [(chunks, packed [S_g, L] a group, stream0)]
+        windows = []  # [(items [(chunks, stream0)], _GroupDownload)]
 
         def flush_held():
             if not held:
                 return
             t0 = _pc()
-            windows.append(([(c, n0) for c, _, n0 in held], _Download(
-                torch.stack([p for _, p, _ in held]))))   # [w', S, L]
+            windows.append(([(c, n0) for c, _, n0 in held], _GroupDownload(
+                [torch.stack([p[g] for _, p, _ in held])    # [w', S_g, L]
+                 for g in range(len(self._group_devs))])))
             held.clear()
             perf["stack"] += _pc() - t0
 
@@ -204,8 +277,8 @@ class StreamServer:
         # fused window dispatch: a whole window of w chunks is tracked and
         # packed by one enqueue pass (track_streams_window_impl); shared
         # providers hand out one window read by every stream, independent
-        # front ends S windows stacked [w, S, t, *iq] (each window in
-        # flight then holds S chunks of IQ on the card until drained)
+        # front ends S windows, stacked [w, S_g, t, *iq] a group (each
+        # window in flight then holds S chunks of IQ until drained)
         fused = cfg.fused_window_dispatch and w > 1
         if self._stacked is None and not any(r.sweep_all
                                              for r in self.receivers):
@@ -248,28 +321,19 @@ class StreamServer:
             stream0 = self.receivers[0].status.stream_no + 1
             if fused and ci + w <= n_chunks:
                 flush_held()          # a partial window from a cold start
-                if shared:
-                    blocks = providers[0](first, w * t)
-                    win = blocks.reshape((w, t) + tuple(blocks.shape[1:]))
-
-                    def mk(i):
-                        return [_DeviceChunk(win[i])]
-                else:
-                    win = torch.stack([
-                        b.reshape((w, t) + tuple(b.shape[1:]))
-                        for b in (p(first, w * t) for p in providers)],
-                        dim=1)
-
-                    def mk(i):
-                        return [_DeviceChunk(win[i, s]) for s in range(s_n)]
-                self._stacked, packed = track_streams_window_impl(
-                    cfg, self._stacked, win, stream0, self._codes_dev,
-                    self._ffts_dev, cap, with_freq, shared)
+                # [w, t, *iq]: the shared window, or one a stream
+                wins = [b.reshape((w, t) + tuple(b.shape[1:])) for b in
+                        (p(first, w * t) for p in providers[:1 if shared
+                                                            else s_n])]
+                packed = self._track(track_streams_window_impl,
+                                     wins, shared, 1, stream0, cap,
+                                     with_freq)
                 advance(w * t)
                 t1 = _pc()
                 perf["dispatch"] += t1 - t0
-                windows.append(([(mk(i), stream0 + i * t) for i in range(w)],
-                                _Download(packed)))
+                windows.append(([([_DeviceChunk(x[i]) for x in wins],
+                                  stream0 + i * t) for i in range(w)],
+                                _GroupDownload(packed)))
                 perf["stack"] += _pc() - t1
                 ci += w
                 if len(windows) >= inflight:
@@ -277,15 +341,14 @@ class StreamServer:
                 continue
             chunks = ([providers[0](first, t)] if shared
                       else [p(first, t) for p in providers])
-            self._stacked, outs = track_streams_impl(
-                cfg, self._stacked,
-                chunks[0] if shared else torch.stack(chunks), stream0,
-                self._codes_dev, self._ffts_dev, shared)
+            outs = self._track(track_streams_impl, chunks, shared, 0,
+                               stream0)
             advance(t)
             t1 = _pc()
             perf["dispatch"] += t1 - t0
             held.append(([_DeviceChunk(c) for c in chunks],
-                         pack_outs_compact(outs, cap, with_freq), stream0))
+                         [pack_outs_compact(o, cap, with_freq)
+                          for o in outs], stream0))
             perf["pack"] += _pc() - t1
             ci += 1
             if len(held) == w:

@@ -11,7 +11,8 @@ wipe delays, check_cheap_chain and check_cheap_case, and
 check_stream_axis for the serving path's stream axis, also with
 noise-led channels; check_decimation and check_excision for the front
 end; check_repeat_bits and track_bias for the wideband slice; the cheap
-checks at n_cyc 64 of phase 10e), here also
+checks at n_cyc 64 of phase 10e; check_acquire_sharded and epochs_equal
+for phase 11a and 11c, the sharding slice), here also
 at the small test configuration, plus the
 slice with the kernels against the slice with their plain versions, and
 the slice on the card (run and run_device) against the slice on the
@@ -437,3 +438,58 @@ def test_stream_server_card_matches_cpu(cuda, mxu):
                 assert both.size
                 np.testing.assert_allclose(gv[np.isin(gs, both)],
                                            wv[np.isin(ws, both)], atol=5e-3)
+
+
+@pytest.mark.parametrize("time_shards,wide", [(2, False), (4, True)],
+                         ids=["product-grid-2x4", "wide-grid-4x2"])
+def test_sharded_acquisition_on_card(cuda, time_shards, wide):
+    """chip_smoke phase 11a at the small configuration: acquire_sharded on
+    a mesh of cuda:0 x 8 against the unsharded acquire_impl on the card
+    (found/delay/freq exact, norm_max rtol 2e-5); both satellites
+    found."""
+    cfg, blocks = _small_stream()
+    if wide:
+        cfg = cfg.replace(min_freq=-10000.0, max_freq=10000.0)
+    res = chip_smoke.check_acquire_sharded(cfg, blocks[0], ["cuda:0"] * 8,
+                                           time_shards)
+    found = chip_smoke.found_list(res, cfg.prns)
+    assert sorted(f[1] for f in found) == [s.prn for s in SATS]
+
+
+@pytest.mark.parametrize("mxu", [True, False], ids=["wipeoff", "vpu"])
+def test_stream_sharded_server_on_card(cuda, mxu):
+    """chip_smoke phase 11c at the small configuration: 3 primed replicas
+    over a stream mesh of cuda:0 x 3 against the unsharded server on the
+    card: every stream's epochs equal (epochs_equal: code phases within
+    1e-5, frames' SAT and tow), and the wipeoff kernel and cheap launch
+    once per group per K-step (3 times the unsharded count)."""
+    from gps_sdr_tpu_torch.ops import hopper_cheap, hopper_wipeoff, tracking
+    from gps_sdr_tpu_torch.parallel.mesh import make_stream_mesh
+    from gps_sdr_tpu_torch.runtime.serving import StreamServer
+
+    cfg, blocks = _small_stream()
+    cfg = cfg.replace(use_mxu_wipeoff=mxu, chunks_per_download=2)
+    t, n_chunks = 24, 5
+    iq = tracking.to_grouped_planar(
+        cfg, torch.from_numpy(blocks[:t * n_chunks])).to(cuda)
+    kernel = (hopper_wipeoff.mix_wipeoff if mxu
+              else hopper_wipeoff.mix_wipeoff_vpu)
+    runs, launches = [], []
+    for mesh in (None, make_stream_mesh(3, ["cuda:0"] * 3)):
+        srv = StreamServer(cfg, 3, device=cuda, mesh=mesh)
+        for rx in srv.receivers:
+            rx.sweep_all = False
+            for s in SATS:
+                rx._activate(s.prn, s.doppler, int(s.code_delay))
+            rx._refresh_code_tables()
+        kernel.launches = hopper_cheap.cheap_scan.launches = 0
+        runs.append([[] for _ in range(3)])
+        for s, epoch in srv.run(lambda f, n: iq[f:f + n], n_chunks, t):
+            runs[-1][s].append(epoch)
+        launches.append((kernel.launches, hopper_cheap.cheap_scan.launches))
+    k_steps = n_chunks * t // cfg.blocks_per_step
+    assert launches == [(k_steps, k_steps), (3 * k_steps, 3 * k_steps)]
+    for got, want in zip(runs[1], runs[0]):
+        assert len(got) == len(want) == n_chunks
+        for a, b in zip(got, want):
+            chip_smoke.epochs_equal(a, b)

@@ -38,7 +38,8 @@ def test_every_module_imports_without_jax():
     for m in ("ops.hopper_cheap", "ops.hopper_wipeoff", "runtime.session",
               "runtime.evaluator", "runtime.serving", "runtime.checkpoint",
               "models.scenario_dev", "models.navmsg", "ops.pvt",
-              "utils.profiling", "cli"):
+              "utils.profiling", "cli", "parallel", "parallel.mesh",
+              "parallel.acquisition", "parallel.tracking"):
         assert f"gps_sdr_tpu_torch.{m}" in mods
     assert "gps_sdr_tpu_torch.host" not in mods
     code = ("import importlib, sys\n"
@@ -86,6 +87,34 @@ def test_port_loads_nothing_of_the_jax_package_nor_optional_packages():
     assert "JAX_LIBS []" in res.stdout, res.stdout
     assert "PORT_LIBS 3" in res.stdout, res.stdout
     assert "FOREIGN_MODULES []" in res.stdout, res.stdout
+
+
+@pytest.mark.parametrize("module", ["gps_sdr_tpu_torch.parallel",
+                                    "gps_sdr_tpu_torch.utils.profiling"])
+def test_sharding_and_profiling_import_without_jax(module):
+    """The sharding slice and the profiler, each imported alone in a fresh
+    interpreter, load no module of jax or gps_sdr_tpu."""
+    code = ("import importlib, sys\n"
+            f"importlib.import_module({module!r})\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'gps_sdr_tpu'))\n"
+            "print('FOREIGN_MODULES', bad)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "FOREIGN_MODULES []" in res.stdout, res.stdout
+
+
+def test_mesh_cuda_raises_without_cuda(monkeypatch):
+    from gps_sdr_tpu_torch.parallel.mesh import make_mesh, make_stream_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh(4, devices=["cuda:0"] * 4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_stream_mesh(2, devices=["cuda:0", "cuda:1"])
 
 
 def test_chip_smoke_imports_only_the_port():

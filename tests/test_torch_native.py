@@ -403,3 +403,24 @@ print("FOREIGN", sorted(m for m in sys.modules
     assert "JAX_LIBS []" in res.stdout, res.stdout
     assert "PORT_LIBS 3" in res.stdout, res.stdout
     assert "FOREIGN []" in res.stdout, res.stdout
+
+
+def test_every_compiled_source_is_package_data():
+    """An installed port builds its kernels (ops/_build.py) and its
+    native host core (nativecore.py) from sources inside the package:
+    each of them must match a package-data pattern of pyproject.toml."""
+    import fnmatch
+    import tomllib
+    from pathlib import Path
+
+    with open(os.path.join(ROOT, "pyproject.toml"), "rb") as f:
+        data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
+    patterns = data["gps_sdr_tpu_torch"]
+    pkg = Path(nativecore.__file__).resolve().parent
+    srcs = list(_build.sources().values()) + [
+        Path(cmd[-1]) for cmd, _ in nativecore.host_jobs().values()]
+    assert len(srcs) == len(_build.ENTRIES) + len(nativecore.HOST_SOURCES)
+    for src in srcs:
+        rel = src.resolve().relative_to(pkg).as_posix()
+        assert src.exists(), rel
+        assert any(fnmatch.fnmatch(rel, p) for p in patterns), rel

@@ -382,5 +382,14 @@ def test_stream_axis_layouts_refused():
 
 
 def test_mesh_not_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        StreamServer(CFG, 2, device="cpu", mesh=object())
+    """A stream mesh is ported (tests/test_torch_parallel.py); what stays
+    refused is JAX's: streams that do not divide over the mesh, and a
+    mesh that is not a one-axis stream mesh."""
+    from gps_sdr_tpu_torch.parallel.mesh import make_mesh, make_stream_mesh
+
+    with pytest.raises(ValueError, match="2 streams not divisible over 3 "
+                                         "devices"):
+        StreamServer(CFG, 2, device="cpu",
+                     mesh=make_stream_mesh(3, ["cpu"] * 3))
+    with pytest.raises(ValueError, match="one axis"):
+        StreamServer(CFG, 2, device="cpu", mesh=make_mesh(2, 1, ["cpu"] * 2))
