@@ -171,9 +171,29 @@ Phases (any failure raises and the script exits non-zero):
         2, a global (2, 2) mesh): track_sharded (exact) on 11b's first
         MP_BLOCKS blocks and acquire_sharded on block 0 equal the
         in-process (2, 2) mesh's and 11a's; neither child holds jax or
-        gps_sdr_tpu; the children are killed in a `finally`.
-The line before the last holds the kernels' launches, errors, times and
-bounds as JSON; the last line is {"ok": true, "device": {...}}.
+        gps_sdr_tpu; the children are killed in a `finally`;
+ 12. the bench slice (gps_sdr_tpu_torch/bench.py, examples/soak.py,
+     examples/endurance.py):
+     a. kernel 1 and the cheap kernel at K=16 and K=32 against their
+        plain versions with phase 2's and phase 3's tolerances, at the
+        bench's product shapes (12 channels) and at its msps16 shapes
+        (cs 16384, n_cyc 8, corr_avg 4, 3 channels, K=16): the predicted
+        and the crafted wipe delays, 8 chained cheap steps and the
+        crafted cheap case; each wrapper's and plain version's times
+        and bounds; then both wipeoff kernels' times at n_cyc 64;
+     b. the bench's main() in this process at cut sizes (BENCH_T_LARGE,
+        BENCH_ENV), every extra, its JSON line parsed
+        (check_bench_result): every extra that tracks launched kernel 1
+        and cheap once a K-step and kernel 2 never, every channel
+        locked, the headline's found fraction >= 0.85 and frequency
+        error < 5 Hz, the snapshot within 50 m, the full loop's and
+        every serving stream's fix within 8 m;
+     c. the soak at SOAK_MINUTES of signal with its checkpoint and
+        resume at half time, at 1 stream and at 8: soak.py's pass rule;
+     d. endurance at ENDURANCE_MINUTES: PASS.
+The line before the last holds the kernels' launches (launches_bench: a
+count for each of the bench's extras), errors, times and bounds as
+JSON; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -3032,6 +3052,214 @@ def run_mesh_slice(cfg, blocks, trk, found, dev="cuda",
 
 
 # --------------------------------------------------------------------------
+# the bench slice (phase 12; bench_kernel_cases and check_bench_kernels
+# also used by tests/test_torch_cuda.py)
+
+# 12b's cut sizes of gps_sdr_tpu_torch/bench.py: argv[1] and environment
+BENCH_T_LARGE = 1024
+BENCH_ENV = {"BENCH_TSMALL": "256", "BENCH_FULL_SEC": "48",
+             "BENCH_SERVE_SEC": "48", "BENCH_SERVE_SCALE": "1,8"}
+# the bench's extras that track, and the channels each tracks a stream
+BENCH_TRACKING = {"headline": 12, "ch32": 32, "streams": 96, "ncyc8": 12,
+                  "fullloop": None, "serving": None, "msps16": 3}
+SOAK_MINUTES = 10.0             # 12c, at 1 and 8 streams
+ENDURANCE_MINUTES = 5.0         # 12d
+
+
+def bench_kernel_cases(cfg):
+    """(tag, config, channels) of phase 12a: the bench's product shapes
+    (12 channels, cs 2048, n_cyc 32) at K=16 (the soak's) and K=32 (the
+    bench's), and msps16's (cs 16384, n_cyc 8, corr_avg 4, 3 channels,
+    K=16)."""
+    from gps_sdr_tpu_torch.kernel_profile import bench_kernel_configs
+
+    return [(tag, c, c.max_sat)
+            for tag, c in bench_kernel_configs(cfg).items()]
+
+
+def check_bench_kernels(cfg, n_ch, dev, timing: bool = False) -> dict:
+    """Kernel 1 and the cheap kernel at cfg's K against their plain
+    versions with phase 2's and phase 3's tolerances, on a 2K-block
+    chunk synthesized on the card: kernel 1 at step 1 with the predicted
+    wipe delays and at step 0 with the crafted ones; the cheap kernel
+    over 8 chained steps (full rings, ms_time past 2^24) and the crafted
+    case; with `timing`, each wrapper's and plain version's times and
+    bounds."""
+    k = cfg.blocks_per_step
+    st, chunk, codes, ffts = make_case(cfg, n_ch, 2 * k, 40 + k, dev,
+                                       on_card=True)
+    w = check_wipeoff(cfg, st, chunk, 1, codes, ffts, timing=timing)
+    wc = check_wipeoff(cfg, st, chunk, 0, codes, ffts,
+                       wipe=crafted_wipe(cfg, n_ch))
+    c = check_cheap_chain(cfg, st, chunk, codes, ffts, timing=timing)
+    cc = check_cheap_case(cfg, n_ch, 3, dev)
+    return {"wipeoff": dict(w, crafted_max_abs_err=wc["max_abs_err"]),
+            "cheap": dict(c, crafted=cc)}
+
+
+def run_bench_kernels(cfg, dev) -> dict:
+    """Phase 12a: check_bench_kernels at every bench_kernel_cases case,
+    timed; then both wipeoff kernels' wrapper and plain times at n_cyc
+    64 (11 channels, K=8)."""
+    out = {}
+    for tag, c, n_ch in bench_kernel_cases(cfg):
+        out[tag] = check_bench_kernels(c, n_ch, dev, timing=True)
+        log(f"[12a] {tag} ({n_ch} ch, K={c.blocks_per_step}, cs "
+            f"{c.code_samples}, n_cyc {c.n_cyc}): "
+            f"{json.dumps(out[tag])}")
+    c64 = cfg.replace(n_cyc=64)
+    st, chunk, codes, ffts = make_case(c64, c64.max_sat,
+                                       2 * c64.blocks_per_step, 64, dev,
+                                       on_card=True)
+    out["n64_ch11"] = {
+        name: check_wipeoff(c64, st, chunk, 1, codes, ffts, timing=True,
+                            vpu=name == "wipeoff_vpu")
+        for name in ("wipeoff", "wipeoff_vpu")}
+    log(f"[12a] both wipeoff kernels at n_cyc 64, 11 ch: "
+        f"{json.dumps(out['n64_ch11'])}")
+    return out
+
+
+@contextlib.contextmanager
+def _environ(values: dict):
+    """os.environ with `values` set, restored on exit."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def check_bench_result(res: dict) -> None:
+    """Phase 12b's bars on the bench's JSON line: every extra that tracks
+    launched kernel 1 and the cheap kernel once a K-step and kernel 2
+    never; every channel locked at the end of each tracking extra; the
+    headline's found fraction >= 0.85 and frequency error < 5 Hz
+    (examples/endurance.py's bars); the snapshot within 50 m
+    (tests/test_snapshot.py's one-block bar); the full loop's and every
+    serving stream's fix within 8 m (the slices' bar)."""
+    ex = res["extra"]
+    for name in BENCH_TRACKING:
+        n = ex["kernel_launches"][name]
+        if not (n["wipeoff"] == n["cheap"] == n["k_steps"] > 0
+                and n["wipeoff_vpu"] == 0):
+            raise AssertionError(f"bench {name}: launches {n} are not one "
+                                 "of kernel 1 and cheap a K-step")
+    locked = {"headline": ex["channels_locked"],
+              "ch32": ex["track_32ch_locked"],
+              "streams": ex["streams_8x12_locked"],
+              "ncyc8": ex["track_ncyc8_locked"],
+              "msps16": ex["track_16msps_locked"]}
+    for name, n_locked in locked.items():
+        if n_locked != BENCH_TRACKING[name]:
+            raise AssertionError(f"bench {name}: {n_locked} of "
+                                 f"{BENCH_TRACKING[name]} channels locked")
+    if not (ex["code_phase_found_frac"] >= 0.85
+            and ex["max_freq_err_hz"] < 5.0):
+        raise AssertionError("bench headline: found fraction "
+                             f"{ex['code_phase_found_frac']}, freq error "
+                             f"{ex['max_freq_err_hz']} Hz")
+    if not ex["snapshot_err_m"] < 50.0:
+        raise AssertionError(f"bench snapshot {ex['snapshot_err_m']} m")
+    if not (isinstance(ex["full_loop_err_m"], float)
+            and ex["full_loop_err_m"] < 8.0):
+        raise AssertionError(f"bench full loop: {ex['full_loop_err_m']}")
+    if not (ex["serving_8x12_streams_with_fixes"] == 8
+            and isinstance(ex["serving_8x12_max_err_m"], float)
+            and ex["serving_8x12_max_err_m"] < 8.0):
+        raise AssertionError("bench serving: "
+                             f"{ex['serving_8x12_streams_with_fixes']} "
+                             "streams with fixes, worst "
+                             f"{ex['serving_8x12_max_err_m']} m")
+    for s, point in ex["serving_scale_curve"].items():
+        if point["streams_with_fixes"] != int(s):
+            raise AssertionError(f"bench serving curve at S={s}: "
+                                 f"{point['streams_with_fixes']} streams "
+                                 "with fixes")
+
+
+def run_bench_phase(dev) -> dict:
+    """Phase 12b: gps_sdr_tpu_torch.bench's main() in this process at
+    BENCH_T_LARGE blocks and BENCH_ENV, every extra; its one JSON line
+    parsed and held to check_bench_result."""
+    import io
+    from contextlib import redirect_stdout
+
+    from gps_sdr_tpu_torch import bench
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with _environ(dict(BENCH_ENV, BENCH_EXTRAS="all")), \
+            redirect_stdout(buf):
+        rc = bench.main([str(BENCH_T_LARGE), "--device", str(dev)])
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+    if rc != 0 or len(lines) != 1:
+        raise AssertionError(f"bench: rc {rc}, {len(lines)} JSON lines")
+    res = json.loads(lines[0])
+    log(f"[12b] bench ({time.perf_counter() - t0:.1f} s): {lines[0]}")
+    check_bench_result(res)
+    return res
+
+
+def run_soak_phase(dev) -> dict:
+    """Phase 12c: gps_sdr_tpu_torch.examples.soak at SOAK_MINUTES of
+    signal (K=16, checkpoint and resume at half time), 1 stream and 8:
+    exit 0, every stream passing soak.py's rule."""
+    import io
+    import tempfile
+    from contextlib import redirect_stdout
+
+    from gps_sdr_tpu_torch.examples import soak
+
+    out = {}
+    for n_streams in (1, 8):
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "soak.json")
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with redirect_stdout(buf):
+                rc = soak.main(["--hours", str(SOAK_MINUTES / 60.0),
+                                "--streams", str(n_streams), "--device",
+                                str(dev), "--out", path])
+            with open(path) as f:
+                doc = json.load(f)
+        log(f"[12c] soak, {n_streams} stream(s), {SOAK_MINUTES:g} min "
+            f"({time.perf_counter() - t0:.1f} s): rc {rc}; "
+            f"{json.dumps(doc)}")
+        if not (rc == 0 and doc["pass"]):
+            raise AssertionError(f"soak at {n_streams} streams failed")
+        out[n_streams] = doc
+    return out
+
+
+def run_endurance_phase(dev) -> dict:
+    """Phase 12d: gps_sdr_tpu_torch.examples.endurance at
+    ENDURANCE_MINUTES (12 channels, chunks of 512 blocks, K=8): PASS."""
+    import io
+    from contextlib import redirect_stdout
+
+    from gps_sdr_tpu_torch.examples import endurance
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with redirect_stdout(buf):
+        rc = endurance.main(["--minutes", str(ENDURANCE_MINUTES),
+                             "--device", str(dev)])
+    text = buf.getvalue().strip()
+    log(f"[12d] endurance, {ENDURANCE_MINUTES:g} min "
+        f"({time.perf_counter() - t0:.1f} s): rc {rc}; "
+        + " | ".join(text.splitlines()[-3:]))
+    if not (rc == 0 and text.endswith("PASS")):
+        raise AssertionError("endurance failed")
+    return {"rc": rc, "wall_s": time.perf_counter() - t0}
+
+
+# --------------------------------------------------------------------------
 
 
 def _kernel_entry(name, source, replaces, launches, res) -> dict:
@@ -3170,6 +3398,15 @@ def main() -> int:
         run_mesh_slice(cfg, blocks, trk, acq["product"])
     log(f"[11] phase 11 took {time.perf_counter() - t11:.1f} s")
 
+    # 12. the bench slice: the kernels at K=16/32, the bench, soak and
+    # endurance
+    t12 = time.perf_counter()
+    bk = run_bench_kernels(cfg, dev)
+    bn = run_bench_phase(dev)
+    run_soak_phase(dev)
+    run_endurance_phase(dev)
+    log(f"[12] phase 12 took {time.perf_counter() - t12:.1f} s")
+
     kernels = [
         _kernel_entry("wipeoff", "wipeoff.cu",
                       "gps_sdr_tpu/ops/pallas_kernels.py:171",
@@ -3223,6 +3460,17 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
     kernels[2]["ncyc64_ch32"] = {"max_abs_err":
                                  c64["ncyc64_ch32"]["max_abs_err"]}
+    launches_bench = bn["extra"]["kernel_launches"]
+    for entry in kernels:
+        entry["launches_bench"] = {
+            extra: n[entry["name"]] for extra, n in launches_bench.items()}
+    timed = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    for entry, part in ((kernels[0], "wipeoff"), (kernels[2], "cheap")):
+        for tag, _, _ in bench_kernel_cases(cfg):
+            entry[tag] = {k: bk[tag][part][k] for k in timed}
+    for entry in kernels[:2]:
+        entry["n64_ch11"] = {k: bk["n64_ch11"][entry["name"]][k]
+                             for k in timed}
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -48,7 +48,10 @@ torch.profiler (CUPTI), on one NVIDIA GPU.
      kernel's device time a call at n_cyc 64 for 11 and 32 channels;
      host_slice, the two-process run (phase 4's scenario as an iq8
      capture, `--role recv` on the card, epochs over UDP to an `eval`
-     child): its wall, the device's busy share and the eval's output.
+     child): its wall, the device's busy share and the eval's output;
+  7. bench_kernels: each kernel's device time a call at the bench's and
+     the soak's K-steps (bench_kernel_configs: K=16 and 32 at 12
+     channels, and K=16 at cs 16384 with 3 channels).
 Every slice also sums its hand-written kernels' device time.
 Prints one JSON object (also written to PATH with --out).  Fails without
 a GPU.
@@ -636,6 +639,25 @@ def profile_ncyc64_kernels(cfg, dev) -> dict:
         n_blocks=2 * c64.blocks_per_step) for n in (11, 32)}
 
 
+def bench_kernel_configs(cfg) -> dict:
+    """The K-steps of the bench (gps_sdr_tpu_torch/bench.py) and the soak
+    beyond the product's K=8: 12 channels at K=16 (the soak's) and K=32
+    (the bench's), and msps16's 3 channels at cs 16384, n_cyc 8, corr_avg
+    4, K=16."""
+    return {"k16": cfg.replace(max_sat=12, blocks_per_step=16),
+            "k32": cfg.replace(max_sat=12, blocks_per_step=32),
+            "msps16_k16": wide_config(cfg).replace(max_sat=3,
+                                                   blocks_per_step=16)}
+
+
+def profile_bench_kernels(cfg, dev) -> dict:
+    """Each kernel's device time a call at bench_kernel_configs, on random
+    inputs of 2 K-steps."""
+    return {tag: profile_kernels(c, dev, stream_counts=(),
+                                 n_blocks=2 * c.blocks_per_step)
+            for tag, c in bench_kernel_configs(cfg).items()}
+
+
 def profile_host_slice(cfg, dev, sec: float = 40.0) -> dict:
     """The two-process topology of chip_smoke.py phase 10b: the synthetic
     fix scenario (host IQ times HOST_SCALE in an iq8 capture) replayed by
@@ -795,7 +817,8 @@ def main(argv=None) -> int:
                     choices=("kernels", "replay_slice", "device_slice",
                              "serving_slice", "frontend_slice", "cw_slice",
                              "wideband_kernels", "wideband_slice",
-                             "ncyc64_kernels", "host_slice"),
+                             "ncyc64_kernels", "host_slice",
+                             "bench_kernels"),
                     help="run only these parts (default: all)")
     args = ap.parse_args(argv)
     import torch
@@ -822,7 +845,8 @@ def main(argv=None) -> int:
              "wideband_kernels": profile_wideband_kernels,
              "wideband_slice": profile_wideband_slice,
              "ncyc64_kernels": profile_ncyc64_kernels,
-             "host_slice": profile_host_slice}
+             "host_slice": profile_host_slice,
+             "bench_kernels": profile_bench_kernels}
     res = {"card": card}
     for name, fn in parts.items():
         if args.only is None or name in args.only:

@@ -538,6 +538,19 @@ class NavDecoder:
         # carries sign last_sign * (-1)^j and rounds to m_j bits
         t = np.concatenate([p[0] for p in self.edge_parts])
         st = np.concatenate([p[1] for p in self.edge_parts])
+        back = np.nonzero(np.diff(t) < 0)[0]
+        if back.size:
+            # ms_time restarted: the slot was re-acquired while a window
+            # tracked with its old state was in flight (run_device,
+            # serving), so that window's edges reached the new decoder
+            # in the old time base.  Keep the edges from the restart on
+            # (the reference decoder raises here on np.repeat).
+            j = int(back[-1]) + 1
+            t, st = t[j:], st[j:]
+            self.last_sign = int(self.last_sign * (-1) ** j)
+            if t.shape[0] < 2:
+                self.edge_parts = [(t, st)]
+                return np.zeros(0, np.int8), np.zeros(0, np.int64)
         m, r = np.divmod(np.diff(t), 20)
         m += r > 17
         k = m.shape[0]

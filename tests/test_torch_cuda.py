@@ -12,7 +12,8 @@ check_stream_axis for the serving path's stream axis, also with
 noise-led channels; check_decimation and check_excision for the front
 end; check_repeat_bits and track_bias for the wideband slice; the cheap
 checks at n_cyc 64 of phase 10e; check_acquire_sharded and epochs_equal
-for phase 11a and 11c, the sharding slice), here also
+for phase 11a and 11c, the sharding slice; check_bench_kernels at K=16
+and 32, phase 12a), here also
 at the small test configuration, plus the
 slice with the kernels against the slice with their plain versions, and
 the slice on the card (run and run_device) against the slice on the
@@ -184,6 +185,23 @@ def test_cheap_kernel_at_n_cyc_64(cuda, n_ch):
     assert chip_smoke.check_cheap_chain(cfg, st, chunk, codes,
                                         ffts)["edges"] > 0
     chip_smoke.check_cheap_case(cfg, n_ch, 3, cuda)
+
+
+BENCH_KERNEL_CASES = chip_smoke.bench_kernel_cases(PRODUCT) + [
+    (f"small_k{k}", SMALL.replace(blocks_per_step=k), 2) for k in (16, 32)]
+
+
+@pytest.mark.parametrize("case", BENCH_KERNEL_CASES,
+                         ids=[c[0] for c in BENCH_KERNEL_CASES])
+def test_kernels_at_bench_k(cuda, case):
+    """chip_smoke phase 12a: kernel 1 and the cheap kernel at K=16 (the
+    soak's) and K=32 (the bench's) against their plain versions, at the
+    bench's 12 product channels, its msps16 shapes (cs 16384, 3
+    channels, K=16) and the small configuration: the cheap kernel's
+    shared memory passes 48 KB at K=32, n_cyc 32."""
+    _, cfg, n_ch = case
+    res = chip_smoke.check_bench_kernels(cfg, n_ch, cuda)
+    assert res["cheap"]["edges"] > 0
 
 
 @pytest.mark.parametrize("shared", [True, False],

@@ -126,3 +126,32 @@ def test_nav_decoder_copy_matches_original(scn, n_polls):
         np.testing.assert_array_equal(td.bits_st, jd.bits_st)
         n_sub += len(got)
     assert n_sub >= 3 * len(scn.sats)
+
+
+def test_nav_decoder_drops_edges_from_before_a_restart():
+    """A slot re-acquired while a window tracked with its old state was in
+    flight (run_device and serving, download_windows_in_flight > 1) hands
+    the new decoder that window's edges in the old ms_time base, then
+    edges whose ms_time restarts near 0.  The reference decoder raises on
+    the negative interval (np.repeat); the port's keeps the edges from
+    the restart on and frames them as a fresh decoder does."""
+    stale = [(4392, 1_148_718), (4412, 1_189_678)]
+    fresh = [(16 + 20 * i + (20 if i % 3 == 0 else 0), 1_333_037 + 40_960 * i)
+             for i in range(40)]
+    for dec_cls in (jnav.NavDecoder, navmsg.NavDecoder):
+        dec = dec_cls(ngps=CFG.ngps)
+        dec.edges = stale + fresh
+        dec.last_sign = -1
+        if dec_cls is jnav.NavDecoder:
+            with pytest.raises(ValueError, match="negative"):
+                dec._frame_bits()
+            continue
+        bits, sts = dec._frame_bits()
+        ref = navmsg.NavDecoder(ngps=CFG.ngps)
+        ref.edges = fresh
+        ref.last_sign = -1                  # two stale edges: same parity
+        want_bits, want_sts = ref._frame_bits()
+        assert bits.size > 30
+        np.testing.assert_array_equal(bits, want_bits)
+        np.testing.assert_array_equal(sts, want_sts)
+        assert dec.edges == ref.edges and dec.last_sign == ref.last_sign

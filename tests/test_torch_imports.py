@@ -39,7 +39,8 @@ def test_every_module_imports_without_jax():
               "runtime.evaluator", "runtime.serving", "runtime.checkpoint",
               "models.scenario_dev", "models.navmsg", "ops.pvt",
               "utils.profiling", "cli", "parallel", "parallel.mesh",
-              "parallel.acquisition", "parallel.tracking"):
+              "parallel.acquisition", "parallel.tracking", "bench",
+              "examples.soak", "examples.endurance"):
         assert f"gps_sdr_tpu_torch.{m}" in mods
     assert "gps_sdr_tpu_torch.host" not in mods
     code = ("import importlib, sys\n"
@@ -90,10 +91,14 @@ def test_port_loads_nothing_of_the_jax_package_nor_optional_packages():
 
 
 @pytest.mark.parametrize("module", ["gps_sdr_tpu_torch.parallel",
-                                    "gps_sdr_tpu_torch.utils.profiling"])
+                                    "gps_sdr_tpu_torch.utils.profiling",
+                                    "gps_sdr_tpu_torch.bench",
+                                    "gps_sdr_tpu_torch.examples.soak",
+                                    "gps_sdr_tpu_torch.examples.endurance"])
 def test_sharding_and_profiling_import_without_jax(module):
-    """The sharding slice and the profiler, each imported alone in a fresh
-    interpreter, load no module of jax or gps_sdr_tpu."""
+    """The sharding slice, the profiler, the bench and the long-run
+    tools, each imported alone in a fresh interpreter, load no module of
+    jax or gps_sdr_tpu."""
     code = ("import importlib, sys\n"
             f"importlib.import_module({module!r})\n"
             "bad = sorted(m for m in sys.modules\n"
