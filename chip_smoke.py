@@ -174,7 +174,7 @@ Phases (any failure raises and the script exits non-zero):
         gps_sdr_tpu; the children are killed in a `finally`;
  12. the bench slice (gps_sdr_tpu_torch/bench.py, examples/soak.py,
      examples/endurance.py):
-     a. kernel 1 and the cheap kernel at K=16 and K=32 against their
+     a. the three kernels at K=16 and K=32 against their
         plain versions with phase 2's and phase 3's tolerances, at the
         bench's product shapes (12 channels) and at its msps16 shapes
         (cs 16384, n_cyc 8, corr_avg 4, 3 channels, K=16): the predicted
@@ -190,10 +190,44 @@ Phases (any failure raises and the script exits non-zero):
         every serving stream's fix within 8 m;
      c. the soak at SOAK_MINUTES of signal with its checkpoint and
         resume at half time, at 1 stream and at 8: soak.py's pass rule;
-     d. endurance at ENDURANCE_MINUTES: PASS.
+     d. endurance at ENDURANCE_MINUTES: PASS;
+ 13. the envelope slice: the JAX package's operating-envelope tests, each
+     with its seed, satellites, duration, noise, scale and config fields
+     (ENVELOPE), at ReceiverConfig() otherwise; every capture synthesized
+     on the card (DeviceScenarioSynth), packed as iq8 and replayed
+     through Session.run_source (kernel 1 and cheap once a K-step, kernel
+     2 never), its first ENVELOPE_PREFIX chunks also through the plain
+     path on the CPU and held to the card's (compare_chunks: the same
+     acquisitions and slots; on channels converged in a chunk FRQ 1e-2
+     Hz and the same bit edges, elsewhere FRQ within 0.6 Hz; code phases
+     5e-3 samples, AMP and CRM rtol 1e-3 where locked on both; the same
+     decoded subframes); each run's realtime factor and device busy
+     share (a CUDA-only torch.profiler trace) logged, one line a run:
+     a. test_sensitivity.py's stream at 50/45/42 dB-Hz and
+        test_codephase_precision.py's through acquire_all and the K-fused
+        tracking, card against CPU, with their bars (PRN 9 alone, locked,
+        FRQ < 5 Hz, C/N0 within 2 dB, BER 0; RMS < 0.08, bias < 0.05);
+     b. test_impaired_replay.py (+2 ppm, 2.6 Hz/s, 53 Doppler bins,
+        solve_clock_rate) replayed, then synthesized on the card through
+        run_device_source at use_mxu_wipeoff=False (kernel 2 and cheap
+        once a K-step, kernel 1 never): its four bars on both runs;
+     c. test_reference_degraded.py (noise 2.0, a 6758-sample gap at 30
+        s): 1-4 phase-error trips, >= 6 satellites tracked before and
+        after, >= 10 fixes before and after, the post-event mean error
+        within max(2 m, half) of the pre-event one;
+     d. test_channel_elasticity.py's A+B -> B+C stream with a requested
+        sweep, every chunk card against CPU: the set ends {12, 23} and
+        PRN 23 yields > 20 code phases;
+     e. test_raim.py's faulted capture, RAIM on and off: its three bars;
+     f. test_velocity.py's moving capture: its track and Doppler
+        velocity bars;
+     g. test_atmos_closed_loop.py's capture, corrections on and off,
+        preloaded coefficients, the static velocity, and a second replay
+        with almanac_resweep_sec 2: its bars.
 The line before the last holds the kernels' launches (launches_bench: a
-count for each of the bench's extras), errors, times and bounds as
-JSON; the last line is {"ok": true, "device": {...}}.
+count for each of the bench's extras; launches_envelope: one for each
+phase-13 run), errors, times and bounds as JSON; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -3078,23 +3112,27 @@ def bench_kernel_cases(cfg):
 
 
 def check_bench_kernels(cfg, n_ch, dev, timing: bool = False) -> dict:
-    """Kernel 1 and the cheap kernel at cfg's K against their plain
-    versions with phase 2's and phase 3's tolerances, on a 2K-block
-    chunk synthesized on the card: kernel 1 at step 1 with the predicted
-    wipe delays and at step 0 with the crafted ones; the cheap kernel
+    """The three kernels at cfg's K against their plain versions with
+    phase 2's and phase 3's tolerances, on a 2K-block chunk synthesized
+    on the card: both wipeoff kernels at step 1 with the predicted wipe
+    delays and at step 0 with the crafted ones; the cheap kernel
     over 8 chained steps (full rings, ms_time past 2^24) and the crafted
     case; with `timing`, each wrapper's and plain version's times and
     bounds."""
     k = cfg.blocks_per_step
     st, chunk, codes, ffts = make_case(cfg, n_ch, 2 * k, 40 + k, dev,
                                        on_card=True)
-    w = check_wipeoff(cfg, st, chunk, 1, codes, ffts, timing=timing)
-    wc = check_wipeoff(cfg, st, chunk, 0, codes, ffts,
-                       wipe=crafted_wipe(cfg, n_ch))
+    out = {}
+    for name in ("wipeoff", "wipeoff_vpu"):
+        vpu = name == "wipeoff_vpu"
+        w = check_wipeoff(cfg, st, chunk, 1, codes, ffts, timing=timing,
+                          vpu=vpu)
+        wc = check_wipeoff(cfg, st, chunk, 0, codes, ffts, vpu=vpu,
+                           wipe=crafted_wipe(cfg, n_ch))
+        out[name] = dict(w, crafted_max_abs_err=wc["max_abs_err"])
     c = check_cheap_chain(cfg, st, chunk, codes, ffts, timing=timing)
     cc = check_cheap_case(cfg, n_ch, 3, dev)
-    return {"wipeoff": dict(w, crafted_max_abs_err=wc["max_abs_err"]),
-            "cheap": dict(c, crafted=cc)}
+    return dict(out, cheap=dict(c, crafted=cc))
 
 
 def run_bench_kernels(cfg, dev) -> dict:
@@ -3260,6 +3298,921 @@ def run_endurance_phase(dev) -> dict:
 
 
 # --------------------------------------------------------------------------
+# the envelope slice (phase 13): the JAX package's operating-envelope
+# tests replayed through the port's entry points at ReceiverConfig()
+
+
+# capture: (ReceiverConfig fields, make_scenario arguments, seconds, noise,
+# pack scale, (gap second, gap samples) or None), each its JAX test's own
+# (tests/test_impaired_replay.py, test_reference_degraded.py, test_raim.py,
+# test_velocity.py, test_atmos_closed_loop.py)
+ENVELOPE = {
+    "impaired": (dict(min_freq=-8200.0, max_freq=2200.0,
+                      solve_clock_rate=True),
+                 dict(n_sats=8, seed=3, osc_ppm=2.0, osc_ppm_rate=1.65e-3),
+                 40.0, 0.5, 0.12, None),
+    "degraded": ({}, dict(n_sats=8, seed=2, osc_ppm=0.6,
+                          osc_ppm_rate=3.0e-4),
+                 64.0, 2.0, 0.05, (30.0, 6758)),
+    "faulted": (dict(raim=True, carrier_smoothing=64),
+                dict(n_sats=7, seed=35), 30.0, 0.5, 0.13, None),
+    "moving": (dict(carrier_smoothing=64),
+               dict(n_sats=7, seed=35, rec_vel_enu=(12.0, -5.0, 0.0)),
+               48.0, 0.5, 0.13, None),
+    "atmos": (dict(iono_corr=True, tropo_corr=True),
+              dict(n_sats=7, seed=21, iono=True, tropo=True),
+              30.0, 0.5, 0.13, None),
+}
+FAULT_SAT, FAULT_S = 2, 1.0e-6          # test_raim.py: sats[2], 1 us
+ENVELOPE_PREFIX = 12                    # chunks (~12.3 s) held card vs CPU
+FRQ_UNCONVERGED = 0.6                   # Hz: ROADMAP §3's traced 0.545 Hz
+# test_sensitivity.py's levels (dB-Hz, noise) and its and
+# test_codephase_precision.py's satellites: (prn, doppler, code delay,
+# nav-bit count, bit seed)
+SENS_LEVELS = ((50, 3.18), (45, 5.66), (42, 8.0))
+SENS_SAT = (9, 1234.0, 800.0, 400, 5)
+PREC_SAT = (17, -3456.0, 1023.37, 128, 17)
+# test_channel_elasticity.py: A sets, C rises
+ELASTIC_SATS = ((5, 1500.0, 300.0), (12, -2200.0, 900.0),
+                (23, 3100.0, 1500.0))
+
+
+def envelope_scenario(name: str, cfg):
+    """The port's make_scenario of ENVELOPE[name] (the faulted capture's
+    third satellite's SV clock 1 us off)."""
+    from gps_sdr_tpu_torch.models.scenario import make_scenario
+
+    _, kw, sec, _, _, _ = ENVELOPE[name]
+    scn = make_scenario(cfg, duration_sec=sec + 12.0, **kw)
+    if name == "faulted":
+        scn.sats[FAULT_SAT].fault_dtsv = FAULT_S
+    return scn
+
+
+U32 = 0xFFFFFFFF
+
+
+def _rotl32(x, r: int):
+    return ((x << r) | (x >> (32 - r))) & U32
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """The Threefry-2x32 hash (20 rounds) that jax.random's default
+    generator runs, on int64 tensors holding uint32 words."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    rot = ((13, 15, 26, 6), (17, 29, 16, 24))
+    x0, x1 = (x0 + ks[0]) & U32, (x1 + ks[1]) & U32
+    for i in range(5):
+        for r in rot[i % 2]:
+            x0 = (x0 + x1) & U32
+            x1 = _rotl32(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & U32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & U32
+    return x0, x1
+
+
+# XLA's float32 erf_inv (M. Giles' polynomials, w < 5 and w >= 5)
+_ERFINV = ((2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+            0.00021858087, -0.00125372503, -0.00417768164, 0.246640727,
+            1.50140941),
+           (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+            0.00573950773, -0.0076224613, 0.00943887047, 1.00167406,
+            2.83297682))
+
+
+def jax_normals(k0, k1, n: int):
+    """jax.random.normal(key, (n,), float32) for the keys (k0, k1) [B]
+    (int64 tensors of uint32 words) -> float32 [B, n]: the partitionable
+    threefry bits of each element's index, JAX's uniform on
+    (nextafter(-1, 0), 1) and sqrt(2) erf_inv.  The bits and the uniform
+    are exact; log1p rounds apart from XLA's in the last bits (<= 3 ulps
+    of the normal)."""
+    import numpy as np
+    import torch
+
+    idx = torch.arange(n, dtype=torch.int64, device=k0.device)
+    b0, b1 = threefry2x32(k0[:, None], k1[:, None], torch.zeros_like(idx),
+                          idx)
+    bits = ((b0 ^ b1) >> 9) | 0x3F800000
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = torch.clamp((bits.to(torch.int32).view(torch.float32) - 1.0) * 2.0
+                    + lo, min=lo)
+    w = -torch.log1p(-u * u)
+    small = w < 5.0
+    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0)
+    coef = list(zip(*_ERFINV))
+    p = torch.where(small, *coef[0])
+    for a, b in coef[1:]:
+        p = torch.where(small, a, b) + p * w
+    return float(np.float32(np.sqrt(2.0))) * (p * u)
+
+
+def jax_synth_noise(cfg, first: int, n_blocks: int, dev, seed: int = 1):
+    """The noise of the JAX package's DeviceScenarioSynth
+    (models/scenario_jax.py _synth_chunk_dev) for blocks first .. first
+    + n_blocks - 1: per block the key fold_in(PRNGKey(0), (seed * 7919 +
+    block) % 2^23), re = normal(key), im = normal(fold_in(key, 1)), as
+    grouped planar float32 [n_blocks, 2, n_cyc, cs]."""
+    import torch
+
+    blocks = torch.arange(first, first + n_blocks, dtype=torch.int64,
+                          device=dev)
+    zero = torch.zeros_like(blocks)
+    k0, k1 = threefry2x32(zero, zero, zero, (seed * 7919 + blocks) % 8388608)
+    j0, j1 = threefry2x32(k0, k1, zero, torch.ones_like(blocks))
+    n = cfg.ngps
+    return torch.stack([jax_normals(k0, k1, n), jax_normals(j0, j1, n)],
+                       dim=1).reshape(n_blocks, 2, cfg.n_cyc,
+                                      cfg.code_samples)
+
+
+def envelope_capture(name: str, cfg, scn, path: str, dev,
+                     max_blocks: int | None = None) -> float:
+    """ENVELOPE[name]'s iq8 capture into `path` as its JAX test builds
+    it: the signal synthesized on `dev` (DeviceScenarioSynth, noise
+    off), plus the JAX synth's own noise (jax_synth_noise), one chunk of
+    no_sec blocks at a time, packed at the test's scale (and cut by its
+    sample gap), or its first max_blocks blocks.  The bytes are the JAX
+    test's but where f32 rounding of the signal (a chip edge) or of the
+    noise's last bits crosses a quantization step
+    (tests/test_torch_envelope_noise.py counts them).  Returns the
+    seconds taken."""
+    import numpy as np
+    import torch
+    from gps_sdr_tpu_torch.models.scenario_dev import DeviceScenarioSynth
+    from gps_sdr_tpu_torch.runtime.sources import pack_iq
+
+    _, _, sec, noise, scale, gap = ENVELOPE[name]
+    t0 = time.perf_counter()
+    synth = DeviceScenarioSynth(scn, noise_std=0.0, device=dev)
+    n_blocks = min(int(round(sec / cfg.block_sec)), max_blocks or 1 << 62)
+    words = []
+    for first in range(0, n_blocks, cfg.no_sec):
+        k = min(cfg.no_sec, n_blocks - first)
+        iq = (synth.chunk_planar(first, k)
+              + noise * jax_synth_noise(cfg, first, k, dev))
+        iq = torch.complex(iq[:, 0], iq[:, 1]).reshape(k, cfg.ngps)
+        words.append(pack_iq(scale * iq.cpu().numpy()).ravel())
+    raw = np.concatenate(words)
+    if gap is not None:
+        at = int(gap[0] * cfg.sample_rate)
+        raw = np.concatenate([raw[:at], raw[at + gap[1]:]])
+    raw.tofile(path)
+    return time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def device_busy(dev):
+    """Yields a dict that gets the block's wall (s) and, on the card, the
+    device's busy time and share of that wall from a torch.profiler
+    trace of the CUDA activity only (no host operators, whose recording
+    would slow the host-bound loop); NaN on the CPU."""
+    import tempfile
+
+    import torch
+    from gps_sdr_tpu_torch.utils import profiling
+
+    out = {"busy_s": float("nan"), "busy_share": float("nan")}
+    if torch.device(dev).type != "cuda":
+        t0 = time.perf_counter()
+        yield out
+        out["wall_s"] = time.perf_counter() - t0
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        yield out
+        torch.cuda.synchronize()
+        out["wall_s"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        prof.export_chrome_trace(os.path.join(
+            tmp, "envelope" + profiling.TRACE_SUFFIX))
+        busy = profiling.device_time_from_trace(tmp)
+    if busy["lane"] != "device":
+        raise AssertionError(f"the trace holds no device events: {busy}")
+    out["busy_s"] = busy["busy_s"]
+    out["busy_share"] = busy["busy_s"] / out["wall_s"]
+
+
+def record_chunks(rx, n: int) -> list:
+    """Wrap rx._dispatch_chunk to keep the first n chunks' outputs (the
+    device tensors; converted after the run, so no sync is added) with
+    the slot map and acquisitions they were tracked with."""
+    kept = []
+    dispatch = rx._dispatch_chunk
+
+    def recording(chunk):
+        outs, stream0 = dispatch(chunk)
+        if len(kept) < n:
+            kept.append((outs, list(rx.slots.slot_prn),
+                         list(rx.found_sats)))
+        return outs, stream0
+
+    rx._dispatch_chunk = recording
+    return kept
+
+
+def _host_chunks(kept) -> list:
+    from gps_sdr_tpu_torch.ops.tracking import outs_to_numpy
+
+    return [(outs_to_numpy(o), slots, found) for o, slots, found in kept]
+
+
+def compare_chunks(tag: str, got: list, want: list) -> dict:
+    """The card's chunks against the plain path's (CPU): the same
+    acquisitions (PRN, frequency, delay exact; norm_max rtol 1e-3) and
+    slot maps.  A channel locked in every block of a chunk on both sides
+    is converged there: FRQ atol 1e-2 Hz and the same bit edges (valid
+    flags, ms and local sample).  Elsewhere FRQ within FRQ_UNCONVERGED
+    (cuFFT against pocketfft on a channel pulling in, ROADMAP §3).  On
+    every block locked on both: code phases (both valid) atol 5e-3
+    samples, AMP (amplitude) and CRM (norm_max) rtol 1e-3.  Returns the
+    largest differences and the counts checked."""
+    import numpy as np
+
+    if len(got) != len(want):
+        raise AssertionError(f"[{tag}] {len(got)} card chunks against "
+                             f"{len(want)} CPU chunks")
+    worst = {"code_phase": 0.0, "frq_converged": 0.0,
+             "frq_unconverged": 0.0, "amp_rel": 0.0, "crm_rel": 0.0}
+    n_conv = n_edges = n_cp = 0
+    for i, ((g, gs, gf), (w, ws, wf)) in enumerate(zip(got, want)):
+        if [f[1:] for f in gf] != [f[1:] for f in wf] or gs != ws:
+            raise AssertionError(f"[{tag}] chunk {i}: acquisitions or slots"
+                                 f" differ: {gf} {gs} against {wf} {ws}")
+        np.testing.assert_allclose([f[0] for f in gf], [f[0] for f in wf],
+                                   rtol=1e-3)
+        both = g.locked & w.locked                       # [T, C]
+        conv = both.all(axis=0) & np.array([p != 0 for p in ws])
+        dfrq = np.abs(g.freq - w.freq)
+        worst["frq_converged"] = max(worst["frq_converged"],
+                                     float(dfrq[:, conv].max(initial=0.0)))
+        worst["frq_unconverged"] = max(
+            worst["frq_unconverged"], float(dfrq[:, ~conv].max(initial=0.0)))
+        cp = both & (g.code_phase >= 0) & (w.code_phase >= 0)
+        worst["code_phase"] = max(worst["code_phase"], float(
+            np.abs(g.code_phase - w.code_phase)[cp].max(initial=0.0)))
+        for key, name in (("amp_rel", "amplitude"), ("crm_rel", "norm_max")):
+            a, b = getattr(g, name)[both], getattr(w, name)[both]
+            worst[key] = max(worst[key], float(
+                (np.abs(a - b) / np.maximum(np.abs(b), 1e-30)).max(
+                    initial=0.0)))
+        for c in np.nonzero(conv)[0]:
+            ev = w.edge_valid[:, c]
+            if not (np.array_equal(g.edge_valid[:, c], ev)
+                    and np.array_equal(g.edge_ms[:, c][ev], w.edge_ms[:, c][ev])
+                    and np.array_equal(g.edge_local[:, c][ev],
+                                       w.edge_local[:, c][ev])):
+                raise AssertionError(f"[{tag}] chunk {i} slot {c}: the bit "
+                                     "edges differ on a converged channel")
+            n_edges += int(ev.sum())
+        n_conv += int(conv.sum())
+        n_cp += int(cp.sum())
+    bad = (worst["code_phase"] > 5e-3 or worst["frq_converged"] > 1e-2
+           or worst["frq_unconverged"] > FRQ_UNCONVERGED
+           or worst["amp_rel"] > 1e-3 or worst["crm_rel"] > 1e-3)
+    out = dict(worst, chunks=len(got), converged_channel_chunks=n_conv,
+               code_phases=n_cp, edges=n_edges)
+    if bad or not n_conv:
+        raise AssertionError(f"[{tag}] card against the plain path: {out}")
+    return out
+
+
+def compare_subframes(tag: str, got_records, want_records) -> int:
+    """The decoded subframes of the CPU run's epochs against the card's
+    first epochs: every nav field and the sample anchor ST equal."""
+    def subs(records):
+        return {(sf["SAT"], sf["ID"], sf["tow"]): sf
+                for rec in records for sf in rec[1] if "ID" in sf}
+
+    skip = {"SAT", "AMP", "CN0", "CRM", "FRQ", "SWP", "EPH"}
+    g, w = subs(got_records[:len(want_records)]), subs(want_records)
+    if sorted(g) != sorted(w) or any(
+            {k: v for k, v in g[key].items() if k not in skip}
+            != {k: v for k, v in w[key].items() if k not in skip}
+            for key in w):
+        raise AssertionError(f"[{tag}] the decoded subframes differ")
+    return len(w)
+
+
+def envelope_replay(tag: str, cfg, path: str, dev, prefix: int = 0,
+                    **session_kw) -> dict:
+    """Session.run_source over the capture at `path` on `dev`, epochs
+    recorded, the first `prefix` chunks' outputs kept (record_chunks):
+    kernel 1 and cheap once a K-step, kernel 2 never."""
+    from gps_sdr_tpu_torch.runtime.session import Session
+    from gps_sdr_tpu_torch.runtime.sources import replay_blocks
+
+    session = Session(cfg, device=dev, record_epochs_to="memory",
+                      **session_kw)
+    kept = record_chunks(session.receiver, prefix)
+    _reset_launches()
+    with device_busy(dev) as busy:
+        session.run_source(replay_blocks(path, cfg))
+    launches = _read_launches()
+    rx = session.receiver
+    if torch_device_type(dev) == "cuda":
+        _check_launches(tag, launches, rx.status.k_steps)
+    sig = rx.status.blocks_processed * cfg.block_sec
+    return dict(session=session, chunks=_host_chunks(kept),
+                launches=launches, wall_s=busy["wall_s"],
+                rtf=sig / busy["wall_s"], busy_share=busy["busy_share"],
+                signal_s=sig)
+
+
+def torch_device_type(dev) -> str:
+    import torch
+
+    return torch.device(dev).type
+
+
+def check_prefix(tag: str, cfg, path: str, run: dict) -> dict:
+    """The capture's first ENVELOPE_PREFIX chunks (and its cold-sweep
+    block) through the port's plain path on the CPU, held to the card's
+    run (compare_chunks, compare_subframes)."""
+    import torch
+
+    if torch_device_type(run["session"].receiver.device) == "cpu":
+        return {}
+    from gps_sdr_tpu_torch.runtime.session import Session
+    from gps_sdr_tpu_torch.runtime.sources import replay_blocks
+
+    t0 = time.perf_counter()
+    cpu = Session(cfg, device="cpu", record_epochs_to="memory")
+    kept = record_chunks(cpu.receiver, ENVELOPE_PREFIX)
+    cpu.run_source(replay_blocks(path, cfg, max_blocks=1 + ENVELOPE_PREFIX
+                                 * cfg.no_sec))
+    out = compare_chunks(tag, run["chunks"], _host_chunks(kept))
+    out["subframes"] = compare_subframes(tag, run["session"].records,
+                                         cpu.records)
+    if not out["subframes"]:
+        raise AssertionError(f"[{tag}] no subframe decoded in the prefix")
+    out["cpu_s"] = time.perf_counter() - t0
+    out["cpu_threads"] = torch.get_num_threads()
+    return out
+
+
+def _fix_err(ev, truth) -> float:
+    import numpy as np
+
+    return (float(np.linalg.norm(ev.stat[0] - truth))
+            if ev.stat is not None else float("nan"))
+
+
+def _bar(tag: str, ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(f"[{tag}] {what}")
+
+
+def log_envelope(tag: str, what: str, run: dict, extra: str = "") -> None:
+    ev = run["session"].evaluator
+    log(f"[{tag}] {what}: {len(ev.positions)} fixes, phase errors "
+        f"{ev.n_phase_errors}, RAIM events {len(ev.raim_events)}; "
+        f"{extra}wall {run['wall_s']:.3f} s for {run['signal_s']:.2f} s = "
+        f"{run['rtf']:.2f}x realtime, device busy "
+        f"{100 * run['busy_share']:.1f}%; launches {run['launches']}")
+
+
+def impaired_bars(tag: str, cfg, scn, session, sec: float) -> dict:
+    """test_impaired_replay.py's four bars."""
+    import numpy as np
+    from gps_sdr_tpu_torch.config import L1_FREQ
+    from gps_sdr_tpu_torch.ops.tracking import summarize_states
+
+    _, kw, _, _, _, _ = ENVELOPE["impaired"]
+    ppm, rate = kw["osc_ppm"], kw["osc_ppm_rate"]
+    ev, rx = session.evaluator, session.receiver
+    err = _fix_err(ev, scn.rec_ecef)
+    _bar(tag, ev.stat is not None and ev.stat[2] >= 8 and err < 8.0
+         and ev.n_phase_errors == 0, f"golden fix: {err:.2f} m, "
+         f"{ev.n_phase_errors} phase errors")
+    states = summarize_states(cfg, rx.states)
+    t_end = sec - 1.0
+    common = -1e-6 * (ppm + rate * t_end) * L1_FREQ
+    worst, n_locked = 0.0, 0
+    for slot, prn in enumerate(rx.slots.slot_prn):
+        if prn == 0 or states["locked"][slot] < 0.5:
+            continue
+        sat = next(s for s in scn.sats if s.prn == prn)
+        tau, _ = scn.sat_states(scn.t_rx0 + np.array([t_end - 0.5,
+                                                      t_end + 0.5]), sat)
+        off = abs(float(states["freq"][slot])
+                  - (-L1_FREQ * (tau[1] - tau[0]) + common))
+        worst, n_locked = max(worst, off), n_locked + 1
+    _bar(tag, n_locked >= 4 and worst < 25.0,
+         f"drift ramp: {n_locked} locked, worst {worst:.1f} Hz off")
+    pos = ev.positions
+    _bar(tag, len(pos) >= 8 and pos[-1][0] - pos[0][0] >= 5.0,
+         "code-clock skew: fixes do not span 5 s")
+    y_mid = 1e-6 * (ppm + rate * 30.0)
+    _bar(tag, abs(ev.clock_rate_est - y_mid) < 1.5e-7,
+         f"clock rate {ev.clock_rate_est:.4e} against {y_mid:.4e}")
+    return dict(err_m=err, locked=n_locked, ramp_worst_hz=worst,
+                clock_rate=ev.clock_rate_est)
+
+
+def run_envelope_impaired(cfg0, dev, tmp: str) -> dict:
+    """13b: the impaired capture replayed (kernel 1, cheap) with its
+    prefix held to the plain path, then the same scenario and noise
+    synthesized on the card (unscaled, unquantized) through
+    run_device_source at use_mxu_wipeoff=False (kernel 2, cheap);
+    test_impaired_replay.py's bars on both."""
+    import torch
+    from gps_sdr_tpu_torch.models.scenario_dev import DeviceScenarioSynth
+    from gps_sdr_tpu_torch.runtime.session import Session
+
+    fields, _, sec, noise, _, _ = ENVELOPE["impaired"]
+    cfg = cfg0.replace(**fields)
+    scn = envelope_scenario("impaired", cfg)
+    path = os.path.join(tmp, "impaired.bin")
+    synth_s = envelope_capture("impaired", cfg, scn, path, dev)
+    run = envelope_replay("13b", cfg, path, dev, ENVELOPE_PREFIX)
+    bars = impaired_bars("13b", cfg, scn, run["session"], sec)
+    prefix = check_prefix("13b", cfg, path, run)
+    os.remove(path)
+    log_envelope("13b", f"impaired replay ({len(cfg.doppler_bins)} "
+                 f"Doppler bins, synthesized in {synth_s:.1f} s)", run,
+                 f"{json.dumps(bars)}; card vs CPU {json.dumps(prefix)}; ")
+
+    dcfg = cfg.replace(use_mxu_wipeoff=False)
+    synth = DeviceScenarioSynth(scn, noise_std=0.0, device=dev)
+
+    def provider(first, n):
+        return (synth.chunk_planar(first, n)
+                + noise * jax_synth_noise(dcfg, first, n, dev))
+
+    n_chunks = int(round(sec / dcfg.block_sec)) // dcfg.no_sec
+    session = Session(dcfg, device=dev)
+    _reset_launches()
+    with device_busy(dev) as busy:
+        session.run_device_source(provider, n_chunks)
+    launches = _read_launches()
+    rx = session.receiver
+    if torch.device(dev).type == "cuda" and not (
+            launches["wipeoff_vpu"] == launches["cheap"] == rx.status.k_steps
+            > 0 and launches["wipeoff"] == 0):
+        raise AssertionError(f"[13b] device run: launches {launches}, "
+                             f"K-steps {rx.status.k_steps}")
+    _bar("13b", rx.status.edge_overflows == 0, "bit edges dropped")
+    dbars = impaired_bars("13b device", dcfg, scn, session, sec)
+    sig = rx.status.blocks_processed * dcfg.block_sec
+    dev_run = dict(session=session, launches=launches,
+                   wall_s=busy["wall_s"], rtf=sig / busy["wall_s"],
+                   busy_share=busy["busy_share"], signal_s=sig)
+    log_envelope("13b", "impaired, synthesized on the card, "
+                 "run_device_source (kernel 2)", dev_run,
+                 f"{json.dumps(dbars)}; ")
+    return {"replay": dict(bars, launches=run["launches"], rtf=run["rtf"],
+                           busy_share=run["busy_share"], prefix=prefix),
+            "device": dict(dbars, launches=launches, rtf=dev_run["rtf"],
+                           busy_share=dev_run["busy_share"])}
+
+
+def _tracked_between(session, lo_s: float, hi_s: float, block_sec) -> set:
+    lo, hi = int(lo_s / block_sec), int(hi_s / block_sec)
+    return {int(sat) for rec in session.records
+            for sat, lst in rec[2].items()
+            if any(lo <= int(n) < hi for n, _ in lst)}
+
+
+def run_envelope_degraded(cfg, dev, tmp: str) -> dict:
+    """13c: the degraded capture (noise 2.0, a 6758-sample gap at 30 s)
+    replayed; test_reference_degraded.py's claims for the port: the
+    phase-error vote trips 1-4 times, >= 6 satellites tracked in the 10 s
+    before and the 20 s after the gap, >= 10 fixes before and after, and
+    the post-event mean error within max(2 m, half) of the pre-event
+    one."""
+    import numpy as np
+
+    _, _, sec, _, _, gap = ENVELOPE["degraded"]
+    scn = envelope_scenario("degraded", cfg)
+    path = os.path.join(tmp, "degraded.bin")
+    envelope_capture("degraded", cfg, scn, path, dev)
+    run = envelope_replay("13c", cfg, path, dev, ENVELOPE_PREFIX)
+    prefix = check_prefix("13c", cfg, path, run)
+    os.remove(path)
+    session = run["session"]
+    ev = session.evaluator
+    _bar("13c", 1 <= ev.n_phase_errors <= 4,
+         f"{ev.n_phase_errors} phase-error trips (1-4)")
+    before = _tracked_between(session, gap[0] - 10.0, gap[0], cfg.block_sec)
+    after = _tracked_between(session, sec - 20.0, sec, cfg.block_sec)
+    _bar("13c", len(before) >= 6 and len(after) >= 6,
+         f"tracked before {sorted(before)}, after {sorted(after)}")
+    fixes = np.array([p[:4] for p in ev.positions], np.float64)
+    _bar("13c", len(fixes) > 0, "no fix")
+    t_event = fixes[0, 0] - 14.0 + gap[0]
+    pre = fixes[fixes[:, 0] < t_event - 1.0]
+    post = fixes[fixes[:, 0] > t_event + 10.0]
+    _bar("13c", len(pre) >= 10 and len(post) >= 10,
+         f"{len(pre)} fixes before, {len(post)} after")
+    e_pre = float(np.mean(np.linalg.norm(pre[:, 1:4] - scn.rec_ecef,
+                                         axis=1)))
+    e_post = float(np.mean(np.linalg.norm(post[:, 1:4] - scn.rec_ecef,
+                                          axis=1)))
+    _bar("13c", e_post < e_pre + max(2.0, 0.5 * e_pre),
+         f"post-event {e_post:.2f} m against pre-event {e_pre:.2f} m")
+    out = dict(phase_errors=ev.n_phase_errors, tracked_before=len(before),
+               tracked_after=len(after), fixes_before=len(pre),
+               fixes_after=len(post), err_pre_m=e_pre, err_post_m=e_post,
+               err_m=_fix_err(ev, scn.rec_ecef))
+    log_envelope("13c", "degraded replay (noise 2.0, gap at 30 s)", run,
+                 f"{json.dumps(out)}; card vs CPU {json.dumps(prefix)}; ")
+    return dict(out, launches=run["launches"], rtf=run["rtf"],
+                busy_share=run["busy_share"], prefix=prefix)
+
+
+def elastic_stream(cfg):
+    """test_channel_elasticity.py's stream: 3 s of A+B, then 3 s of B+C."""
+    import numpy as np
+    from gps_sdr_tpu_torch.models.simulator import (SatSignal, random_bits,
+                                                    synth_stream)
+
+    a, b, c = (SatSignal(prn=p, doppler=f, code_delay=d,
+                         nav_bits=random_bits(64, seed=p))
+               for p, f, d in ELASTIC_SATS)
+    n = 3 * cfg.no_sec
+    return np.concatenate([synth_stream(cfg, [a, b], n, noise_std=0.4,
+                                        seed=1),
+                           synth_stream(cfg, [b, c], n, noise_std=0.4,
+                                        seed=2)])
+
+
+def elastic_run(cfg, blocks, dev) -> dict:
+    """Receiver.run over the stream on `dev`, a re-sweep requested once
+    PRN 5 should have set (the JAX test's loop); every chunk recorded."""
+    from gps_sdr_tpu_torch.runtime.receiver import Receiver
+
+    rx = Receiver(cfg, device=dev)
+    kept = record_chunks(rx, len(blocks))
+    n_half = 3 * cfg.no_sec
+    epochs = []
+    _reset_launches()
+    with device_busy(dev) as busy:
+        for epoch in rx.run(iter(blocks)):
+            epochs.append(epoch)
+            if rx.status.blocks_processed >= n_half + 2 * cfg.no_sec \
+                    and 5 in rx.slots.active:
+                rx.request_sweep()
+    return dict(rx=rx, epochs=epochs, chunks=_host_chunks(kept),
+                launches=_read_launches(), busy=busy)
+
+
+def run_envelope_elasticity(cfg0, dev) -> dict:
+    """13d: the A+B -> B+C stream with a requested sweep (max_sat 2, a 2 s
+    quality window) on the card and on the CPU, every chunk held card vs
+    CPU; the set ends {12, 23}, PRN 23 yields > 20 code phases in the
+    last epoch."""
+    cfg = cfg0.replace(max_sat=2, corr_q_window_sec=2)
+    blocks = elastic_stream(cfg)
+    run = elastic_run(cfg, blocks, dev)
+    rx, epochs = run["rx"], run["epochs"]
+    if torch_device_type(dev) == "cuda":
+        _check_launches("13d", run["launches"], rx.status.k_steps)
+    cold = {sf["SAT"] for e in epochs[:2] for sf in e.frames}
+    last = epochs[-1].code_phases
+    _bar("13d", {5, 12} <= cold and rx.slots.active == {12, 23}
+         and len(last.get(23, ())) > 20 and 12 in last,
+         f"cold {sorted(cold)}, final set {sorted(rx.slots.active)}, PRN 23"
+         f" code phases {len(last.get(23, ()))}")
+    prefix = {}
+    if torch_device_type(dev) == "cuda":
+        t0 = time.perf_counter()
+        cpu = elastic_run(cfg, blocks, "cpu")
+        _bar("13d", cpu["rx"].slots.active == rx.slots.active,
+             "the CPU run ends with another set")
+        prefix = compare_chunks("13d", run["chunks"], cpu["chunks"])
+        prefix["cpu_s"] = time.perf_counter() - t0
+    sig = len(blocks) * cfg.block_sec
+    wall = run["busy"]["wall_s"]
+    log(f"[13d] elasticity: final set {sorted(rx.slots.active)}, PRN 23 "
+        f"{len(last[23])} code phases in the last epoch, sweeps "
+        f"{rx.status.sweeps_served}; wall {wall:.3f} s for {sig:.2f} s = "
+        f"{sig / wall:.2f}x realtime, device busy "
+        f"{100 * run['busy']['busy_share']:.1f}%; launches "
+        f"{run['launches']}; card vs CPU {json.dumps(prefix)}")
+    return dict(launches=run["launches"], rtf=sig / wall,
+                busy_share=run["busy"]["busy_share"], prefix=prefix)
+
+
+def run_envelope_raim(cfg0, dev, tmp: str) -> dict:
+    """13e: the faulted capture with RAIM on (carrier_smoothing 64) and
+    off: the unprotected fix > 15 m off, RAIM names the faulted
+    satellite alone (<= 2 events, statistic down > 20x) and repairs the
+    fix (< 6 m and < 0.2 x the unprotected error)."""
+    fields, _, _, _, _, _ = ENVELOPE["faulted"]
+    cfg = cfg0.replace(**fields)
+    scn = envelope_scenario("faulted", cfg)
+    path = os.path.join(tmp, "faulted.bin")
+    envelope_capture("faulted", cfg, scn, path, dev)
+    on = envelope_replay("13e", cfg, path, dev, ENVELOPE_PREFIX)
+    prefix = check_prefix("13e", cfg, path, on)
+    off = envelope_replay("13e", cfg.replace(raim=False), path, dev)
+    os.remove(path)
+    ev_on, ev_off = on["session"].evaluator, off["session"].evaluator
+    err_on, err_off = (_fix_err(e, scn.rec_ecef) for e in (ev_on, ev_off))
+    bad = scn.sats[FAULT_SAT].prn
+    events = ev_on.raim_events
+    _bar("13e", err_off > 15.0, f"unprotected fix only {err_off:.2f} m off")
+    _bar("13e", events and {e[1] for e in events} == {bad}
+         and len(events) <= 2 and events[0][2] > 20 * events[0][3],
+         f"RAIM events {events}, faulted PRN {bad}")
+    _bar("13e", err_on < 6.0 and err_on < 0.2 * err_off,
+         f"RAIM fix {err_on:.2f} m against {err_off:.2f} m")
+    out = dict(err_raim_m=err_on, err_off_m=err_off, faulted_prn=bad,
+               raim_events=[list(e) for e in events])
+    log_envelope("13e", "faulted replay, RAIM on", on,
+                 f"{json.dumps(out)}; card vs CPU {json.dumps(prefix)}; ")
+    log_envelope("13e", "faulted replay, RAIM off", off)
+    return dict(out, launches=on["launches"], launches_off=off["launches"],
+                rtf=on["rtf"], busy_share=on["busy_share"], prefix=prefix)
+
+
+def run_envelope_moving(cfg0, dev, tmp: str) -> dict:
+    """13f: the moving capture (13 m/s, carrier_smoothing 64): >= 100
+    fixes over > 10 s whose linear fit is within 1 m/s of the velocity
+    and whose mean trajectory error is < 10 m; >= 5 Doppler velocity
+    solves whose median is within 0.5 m/s; clock drift < 2e-8."""
+    import numpy as np
+    from gps_sdr_tpu_torch.utils.gpstime import gps_datetime
+
+    fields, _, _, _, _, _ = ENVELOPE["moving"]
+    cfg = cfg0.replace(**fields)
+    scn = envelope_scenario("moving", cfg)
+    path = os.path.join(tmp, "moving.bin")
+    envelope_capture("moving", cfg, scn, path, dev)
+    run = envelope_replay("13f", cfg, path, dev, ENVELOPE_PREFIX)
+    prefix = check_prefix("13f", cfg, path, run)
+    os.remove(path)
+    ev = run["session"].evaluator
+    t = np.array([p[0] for p in ev.positions])
+    pos = np.array([p[1:] for p in ev.positions])
+    _bar("13f", len(t) >= 100 and t[-1] - t[0] > 10.0,
+         f"{len(t)} fixes")
+    v_fit = np.array([np.polyfit(t - t[0], pos[:, ax], 1)[0]
+                      for ax in range(3)])
+    t0 = gps_datetime(scn.tow0, scn.week).timestamp() + 0.25
+    bias = float(np.linalg.norm((pos - (scn.rec_ecef + (t - t0)[:, None]
+                                        * scn.rec_vel)).mean(axis=0)))
+    v = np.array([row[1:] for row in ev.velocities], np.float64)
+    fit_err = float(np.linalg.norm(v_fit - scn.rec_vel))
+    vel_err = (float(np.linalg.norm(np.median(v, axis=0) - scn.rec_vel))
+               if len(v) else float("nan"))
+    _bar("13f", fit_err < 1.0 and bias < 10.0,
+         f"track: fit {fit_err:.2f} m/s off, bias {bias:.2f} m")
+    _bar("13f", len(v) >= 5 and vel_err < 0.5
+         and abs(ev.vel_result.clock_drift) < 2e-8,
+         f"Doppler velocity: {len(v)} solves, {vel_err:.3f} m/s off")
+    out = dict(fit_err_mps=fit_err, track_bias_m=bias,
+               velocity_err_mps=vel_err, velocity_solves=len(v))
+    log_envelope("13f", "moving replay (13 m/s)", run,
+                 f"{json.dumps(out)}; card vs CPU {json.dumps(prefix)}; ")
+    return dict(out, launches=run["launches"], rtf=run["rtf"],
+                busy_share=run["busy_share"], prefix=prefix)
+
+
+def run_envelope_atmos(cfg0, dev, tmp: str) -> dict:
+    """13g: the atmospheric capture with corrections on (page 18
+    decoded, >= 8 averaged fixes, < 6 m) and, on the same epochs, off
+    (> 1 m worse); with coefficients preloaded (first fix < 30 m, mean
+    < 2 m); the static velocity < 0.3 m/s; then the capture again with
+    almanac_resweep_sec 2 from the scenario's almanac: >= 2 warm sweeps,
+    < 6 m, >= 6 satellites kept."""
+    import numpy as np
+    from gps_sdr_tpu_torch import ReceiverConfig
+    from gps_sdr_tpu_torch.models.almanac import almanac_from_ephem
+    from gps_sdr_tpu_torch.runtime.evaluator import EpochInput, Evaluator
+    from gps_sdr_tpu_torch.runtime.session import Session
+    from gps_sdr_tpu_torch.utils.io import save_almanac
+
+    fields, _, _, _, _, _ = ENVELOPE["atmos"]
+    cfg = cfg0.replace(**fields)
+    scn = envelope_scenario("atmos", cfg)
+    path = os.path.join(tmp, "atmos.bin")
+    envelope_capture("atmos", cfg, scn, path, dev)
+    run = envelope_replay("13g", cfg, path, dev, ENVELOPE_PREFIX)
+    prefix = check_prefix("13g", cfg, path, run)
+    session = run["session"]
+    ev = session.evaluator
+    err = _fix_err(ev, scn.rec_ecef)
+    off = Session(ReceiverConfig(), device=dev)
+    off.run_epoch_records(session.records)
+    err_off = _fix_err(off.evaluator, scn.rec_ecef)
+    _bar("13g", ev.iono_params is not None and ev.stat is not None
+         and ev.stat[2] >= 8 and err < 6.0 and err_off > err + 1.0,
+         f"corrected {err:.2f} m, uncorrected {err_off:.2f} m")
+    pre = Evaluator(cfg, iono_params={"alpha": scn.iono_alpha,
+                                      "beta": scn.iono_beta})
+    for rec in session.records:
+        pre.process(EpochInput(*rec))
+    first = (float(np.linalg.norm(np.asarray(pre.positions[0][1:])
+                                  - scn.rec_ecef))
+             if pre.positions else float("nan"))
+    err_pre = _fix_err(pre, scn.rec_ecef)
+    _bar("13g", len(pre.positions) >= 5 and first < 30.0 and err_pre < 2.0,
+         f"preloaded: first fix {first:.2f} m, mean {err_pre:.2f} m")
+    v = np.array([row[1:] for row in ev.velocities], np.float64)
+    speed = (float(np.linalg.norm(np.median(v, axis=0))) if len(v)
+             else float("nan"))
+    _bar("13g", len(v) >= 3 and speed < 0.3, f"static velocity {speed}")
+    alm = os.path.join(tmp, "almanac.json")
+    save_almanac(alm, {s.prn: almanac_from_ephem(s.eph) for s in scn.sats})
+    maint = envelope_replay("13g", cfg.replace(almanac_resweep_sec=2.0),
+                            path, dev, almanac_cache_path=alm)
+    os.remove(path)
+    mrx = maint["session"].receiver
+    err_maint = _fix_err(maint["session"].evaluator, scn.rec_ecef)
+    _bar("13g", mrx.status.warm_sweeps >= 2 and err_maint < 6.0
+         and len(mrx.slots.active) >= 6,
+         f"maintenance: {mrx.status.warm_sweeps} warm sweeps, "
+         f"{err_maint:.2f} m, {len(mrx.slots.active)} satellites")
+    out = dict(err_m=err, err_uncorrected_m=err_off, first_fix_m=first,
+               err_preloaded_m=err_pre, static_speed_mps=speed,
+               warm_sweeps=mrx.status.warm_sweeps, err_maint_m=err_maint)
+    log_envelope("13g", "atmosphere replay, corrections on", run,
+                 f"{json.dumps(out)}; card vs CPU {json.dumps(prefix)}; ")
+    log_envelope("13g", "atmosphere replay, almanac re-sweep every 2 s",
+                 maint)
+    return dict(out, launches=run["launches"],
+                launches_maint=maint["launches"], rtf=run["rtf"],
+                busy_share=run["busy_share"], prefix=prefix)
+
+
+def sens_sat(spec):
+    from gps_sdr_tpu_torch.models.simulator import SatSignal, random_bits
+
+    prn, dopp, delay, n_bits, seed = spec
+    return SatSignal(prn=prn, doppler=dopp, code_delay=delay,
+                     nav_bits=random_bits(n_bits, seed=seed))
+
+
+def track_one(cfg, blocks, prn, freq, delay, dev):
+    """K-fused tracking of one channel from reset on `dev`; numpy outs."""
+    import torch
+    from gps_sdr_tpu_torch.ops import cacode
+    from gps_sdr_tpu_torch.ops.tracking import (init_channel_states,
+                                                outs_to_numpy, reset_channel,
+                                                track_chunk_batched_impl)
+
+    st = reset_channel(init_channel_states(cfg, 1, dev), 0, prn, freq, delay,
+                       cfg)
+    codes = torch.tensor(cacode.ca_table(cfg)[prn][None], device=dev)
+    ffts = torch.tensor(cacode.ca_fft_table(cfg)[prn][None], device=dev)
+    _, outs = track_chunk_batched_impl(cfg, st, torch.as_tensor(blocks,
+                                                                device=dev),
+                                       1, codes, ffts)
+    return outs_to_numpy(outs)
+
+
+def decoded_ber(cfg, o, sat) -> float:
+    """Bit error rate of one channel's decoded bits against the
+    satellite's (first 48-bit alignment, either polarity); NaN if none
+    aligns or fewer than 61 bits framed."""
+    import numpy as np
+    from gps_sdr_tpu_torch.models.navmsg import NavDecoder
+
+    dec = NavDecoder(ngps=cfg.ngps)
+    for b in range(o.sign0.shape[0]):
+        dec.push_block(o.sign0[b, 0], o.edge_ms[b, 0], o.edge_local[b, 0],
+                       o.edge_valid[b, 0], stream_no=1 + b,
+                       erased=bool(o.erased[b, 0]))
+    bits, _ = dec._frame_bits()
+    ref = sat.nav_bits.astype(np.int8)
+    if len(bits) <= 60:
+        return float("nan")
+    for pol in (1, -1):
+        g = np.asarray(bits) * pol
+        for off in range(len(ref) - 48):
+            if np.array_equal(ref[off:off + 48], g[:48]):
+                n = min(len(g), len(ref) - off)
+                return float((ref[off:off + n] != g[:n]).mean())
+    return float("nan")
+
+
+def _halves(o, prn, found) -> list:
+    """One channel's 64-block outputs as two 32-block chunks for
+    compare_chunks: the pull-in, then (converged) the rest."""
+    from gps_sdr_tpu_torch.ops.tracking import ChannelOut
+
+    return [(ChannelOut(*[x[sl] for x in o]), [prn], found)
+            for sl in (slice(0, 32), slice(32, None))]
+
+
+def run_envelope_sensitivity(cfg, dev) -> dict:
+    """13a: test_sensitivity.py's stream (PRN 9, 64 blocks) at 50/45/42
+    dB-Hz and test_codephase_precision.py's (PRN 17, noise 0.5) through
+    acquire_all and the K-fused tracking on `dev`, each against the same
+    calls on the CPU (compare_chunks), with the JAX tests' bars: PRN 9
+    alone, frequency within step_freq, delay within 1.5, locked, code
+    phase valid > 0.7, FRQ within 5 Hz, C/N0 within 2 dB, BER 0; code
+    phase RMS < 0.08 and bias < 0.05 samples."""
+    import numpy as np
+    from gps_sdr_tpu_torch.models.simulator import synth_stream
+    from gps_sdr_tpu_torch.ops import cacode
+    from gps_sdr_tpu_torch.ops.acquisition import acquire_all
+    from gps_sdr_tpu_torch.ops.tracking import cn0_from_amp
+
+    n_blocks, out = 64, {}
+    sat = sens_sat(SENS_SAT)
+    on_card = torch_device_type(dev) == "cuda"
+    _reset_launches()
+    for cn0, noise in SENS_LEVELS:
+        blocks = synth_stream(cfg, [sat], n_blocks, noise_std=noise, seed=3)
+        found = acquire_all(cfg, blocks[0], cacode.ca_fft_table(cfg),
+                            prns=list(range(2, 33)), device=dev)
+        tag = f"13a {cn0} dB-Hz"
+        _bar(tag, [f[1] for f in found] == [9], f"acquired {found}")
+        _, _, freq, delay = found[0]
+        _bar(tag, abs(freq - sat.doppler) <= cfg.step_freq
+             and abs(delay - sat.code_delay) <= 1.5,
+             f"acquired at {freq} Hz, delay {delay}")
+        o = track_one(cfg, blocks, 9, freq, delay, dev)
+        est = float(np.mean(cn0_from_amp(o.amplitude[32:, 0])))
+        truth = 10 * np.log10(cfg.sample_rate / (2 * noise ** 2))
+        ber = decoded_ber(cfg, o, sat)
+        valid = float((o.code_phase[:, 0] >= 0).mean())
+        _bar(tag, bool(o.locked[-1, 0]) and valid > 0.7
+             and abs(o.freq[-1, 0] - sat.doppler) < 5.0
+             and abs(est - truth) < 2.0 and ber == 0.0,
+             f"locked {bool(o.locked[-1, 0])}, valid {valid:.3f}, FRQ "
+             f"{o.freq[-1, 0]:.2f}, C/N0 {est:.2f} against {truth:.2f}, "
+             f"BER {ber}")
+        res = dict(valid=valid, frq_err_hz=float(o.freq[-1, 0] - sat.doppler),
+                   cn0_est=est, cn0_truth=float(truth), ber=ber)
+        if on_card:
+            cfound = acquire_all(cfg, blocks[0], cacode.ca_fft_table(cfg),
+                                 prns=list(range(2, 33)), device="cpu")
+            res["vs_cpu"] = compare_chunks(
+                tag, _halves(o, 9, found),
+                _halves(track_one(cfg, blocks, 9, freq, delay, "cpu"), 9,
+                        cfound))
+        out[cn0] = res
+        log(f"[{tag}] {json.dumps(res)}")
+    psat = sens_sat(PREC_SAT)
+    blocks = synth_stream(cfg, [psat], n_blocks, noise_std=0.5, seed=4)
+    o = track_one(cfg, blocks, 17, psat.doppler, int(psat.code_delay), dev)
+    got = o.code_phase[:, 0]
+    n_center = np.arange(n_blocks) * cfg.ngps + cfg.ngps // 2
+    cs = cfg.code_samples
+    true = (psat.code_delay + psat.delay_rate(cfg) * (n_center
+                                                      / cfg.sample_rate)) % cs
+    ok = got >= 0
+    err = ((got[ok] - true[ok] + cs / 2) % cs - cs / 2)[5:]
+    rms, bias = float(np.sqrt(np.mean(err ** 2))), float(np.mean(err))
+    _bar("13a precision", ok.mean() > 0.9 and rms < 0.08 and abs(bias) < 0.05,
+         f"valid {ok.mean():.3f}, RMS {rms:.4f}, bias {bias:.4f}")
+    res = dict(rms=rms, bias=bias)
+    if on_card:
+        res["vs_cpu"] = compare_chunks(
+            "13a precision", _halves(o, 17, []),
+            _halves(track_one(cfg, blocks, 17, psat.doppler,
+                              int(psat.code_delay), "cpu"), 17, []))
+    out["precision"] = res
+    launches = _read_launches()
+    log(f"[13a] code-phase precision: {json.dumps(res)}; launches "
+        f"{launches} (4 streams x 8 K-steps)")
+    if on_card:
+        _check_launches("13a", launches, 4 * n_blocks // cfg.blocks_per_step)
+    return dict(out, launches=launches)
+
+
+def run_envelope(cfg, dev="cuda") -> dict:
+    """Phase 13: the envelope scenarios 13a-13g on `dev` (captures in a
+    temporary directory, removed after each scenario)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["sensitivity"] = run_envelope_sensitivity(cfg, dev)
+        out["impaired"] = run_envelope_impaired(cfg, dev, tmp)
+        out["degraded"] = run_envelope_degraded(cfg, dev, tmp)
+        out["elasticity"] = run_envelope_elasticity(cfg, dev)
+        out["raim"] = run_envelope_raim(cfg, dev, tmp)
+        out["moving"] = run_envelope_moving(cfg, dev, tmp)
+        out["atmos"] = run_envelope_atmos(cfg, dev, tmp)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[13] phase 13 took {out['wall_s']:.1f} s")
+    return out
+
+
+def envelope_launches(env: dict, name: str) -> dict:
+    """Each phase-13 run's launches of kernel `name`."""
+    return {"sensitivity": env["sensitivity"]["launches"][name],
+            "impaired_replay": env["impaired"]["replay"]["launches"][name],
+            "impaired_device": env["impaired"]["device"]["launches"][name],
+            "degraded": env["degraded"]["launches"][name],
+            "elasticity": env["elasticity"]["launches"][name],
+            "raim": env["raim"]["launches"][name],
+            "raim_off": env["raim"]["launches_off"][name],
+            "moving": env["moving"]["launches"][name],
+            "atmos": env["atmos"]["launches"][name],
+            "atmos_almanac_resweep": env["atmos"]["launches_maint"][name]}
+
+
+# --------------------------------------------------------------------------
 
 
 def _kernel_entry(name, source, replaces, launches, res) -> dict:
@@ -3407,6 +4360,9 @@ def main() -> int:
     run_endurance_phase(dev)
     log(f"[12] phase 12 took {time.perf_counter() - t12:.1f} s")
 
+    # 13. the envelope slice
+    env = run_envelope(cfg, dev)
+
     kernels = [
         _kernel_entry("wipeoff", "wipeoff.cu",
                       "gps_sdr_tpu/ops/pallas_kernels.py:171",
@@ -3468,9 +4424,13 @@ def main() -> int:
     for entry, part in ((kernels[0], "wipeoff"), (kernels[2], "cheap")):
         for tag, _, _ in bench_kernel_cases(cfg):
             entry[tag] = {k: bk[tag][part][k] for k in timed}
+    for tag, _, _ in bench_kernel_cases(cfg):
+        kernels[1][tag] = {k: bk[tag]["wipeoff_vpu"][k] for k in timed}
     for entry in kernels[:2]:
         entry["n64_ch11"] = {k: bk["n64_ch11"][entry["name"]][k]
                              for k in timed}
+    for entry in kernels:
+        entry["launches_envelope"] = envelope_launches(env, entry["name"])
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

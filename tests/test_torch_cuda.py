@@ -13,7 +13,7 @@ noise-led channels; check_decimation and check_excision for the front
 end; check_repeat_bits and track_bias for the wideband slice; the cheap
 checks at n_cyc 64 of phase 10e; check_acquire_sharded and epochs_equal
 for phase 11a and 11c, the sharding slice; check_bench_kernels at K=16
-and 32, phase 12a), here also
+and 32, phase 12a; run_envelope_sensitivity, phase 13a), here also
 at the small test configuration, plus the
 slice with the kernels against the slice with their plain versions, and
 the slice on the card (run and run_device) against the slice on the
@@ -194,7 +194,7 @@ BENCH_KERNEL_CASES = chip_smoke.bench_kernel_cases(PRODUCT) + [
 @pytest.mark.parametrize("case", BENCH_KERNEL_CASES,
                          ids=[c[0] for c in BENCH_KERNEL_CASES])
 def test_kernels_at_bench_k(cuda, case):
-    """chip_smoke phase 12a: kernel 1 and the cheap kernel at K=16 (the
+    """chip_smoke phase 12a: the three kernels at K=16 (the
     soak's) and K=32 (the bench's) against their plain versions, at the
     bench's 12 product channels, its msps16 shapes (cs 16384, 3
     channels, K=16) and the small configuration: the cheap kernel's
@@ -511,3 +511,14 @@ def test_stream_sharded_server_on_card(cuda, mxu):
         assert len(got) == len(want) == n_chunks
         for a, b in zip(got, want):
             chip_smoke.epochs_equal(a, b)
+
+
+def test_envelope_sensitivity_on_card(cuda):
+    """chip_smoke phase 13a: test_sensitivity.py's stream at 50/45/42
+    dB-Hz and test_codephase_precision.py's through acquire_all and the
+    K-fused tracking on the card, held to the same calls on the CPU
+    (compare_chunks) and to the JAX tests' bars."""
+    res = chip_smoke.run_envelope_sensitivity(PRODUCT, cuda)
+    assert res["launches"]["wipeoff"] == res["launches"]["cheap"] == 32
+    for cn0 in (50, 45, 42):
+        assert res[cn0]["ber"] == 0.0
