@@ -224,9 +224,30 @@ Phases (any failure raises and the script exits non-zero):
      g. test_atmos_closed_loop.py's capture, corrections on and off,
         preloaded coefficients, the static velocity, and a second replay
         with almanac_resweep_sec 2: its bars.
+ 14. the examples slice (gps_sdr_tpu_torch/examples/synthetic_fix.py and
+     analysis.py, the notebook's module), each run's error, realtime
+     factor and device busy share logged:
+     a. synthetic_fix.run at its defaults on phase 4's blocks: phase 4's
+        fix count and ephemerides, its mean within 1 mm, PASS, kernel 1
+        and cheap once a K-step and kernel 2 never; then `python -m
+        gps_sdr_tpu_torch.examples.synthetic_fix --on-device --quiet` (no
+        --device) in a child process: exit 0 and PASS;
+     b. synthetic_fix --on-device with each of EXAMPLE_FLAG_SETS (TCXO
+        offset and drift, iono + tropo, moving + track filter, SV-clock
+        fault + RAIM, carrier smoothing): kernel 1 and cheap once a
+        K-step, and the JAX example's verdict (PASS);
+     c. analysis.ideal_epochs + evaluate = IDEAL_PINS; live_parallel on
+        the card over two free UDP ports: >= 3 epochs, kernel 1 and cheap
+        once a K-step, its epochs = an in-process Session run's (frames
+        equal, code phases within 1.22e-4 samples);
+     d. `replay --record-epochs` of phase 4's blocks on the card, read
+        back in a child process by the `epochs` mode and by
+        analysis.load_epochs: no jax or gps_sdr_tpu module loaded, the
+        recording run's fixes.
 The line before the last holds the kernels' launches (launches_bench: a
 count for each of the bench's extras; launches_envelope: one for each
-phase-13 run), errors, times and bounds as JSON; the last line is
+phase-13 run; launches_examples: one for each phase-14 run in this
+process), errors, times and bounds as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -243,6 +264,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SLICE_SEC = 40.0
 N_SATS, SEED, NOISE = 6, 3, 0.5
 CHEAP_STEPS = 8                 # chained K-steps of the cheap-kernel check
+# phase 14b: synthetic_fix's flag sets run --on-device (the JAX example
+# passes each on the CPU: PERF.md)
+EXAMPLE_FLAG_SETS = (("--osc-ppm", "2", "--osc-ppm-rate", "1.65e-3"),
+                     ("--iono", "--tropo"),
+                     ("--moving", "13,0", "--track-filter", "1"),
+                     ("--fault-us", "1"),
+                     ("--carrier-smoothing", "50"))
 # one NVIDIA H100 SXM at its 700 W limit (data sheet): device memory
 # rate and the f32 rate outside the tensor cores
 H100_BYTES_PER_S = 3.35e12
@@ -1031,7 +1059,8 @@ def run_slice(cfg) -> dict:
                              "or wipeoff_vpu launched")
     return dict(launches=launches, err_m=err, wall_s=wall,
                 rtf=SLICE_SEC / wall, fixes=summary["n_positions"],
-                scn=scn, blocks=blocks)
+                ephemerides=sorted(summary["ephemerides"]),
+                mean=summary["stat"][0], scn=scn, blocks=blocks)
 
 
 def run_device_slice(base_cfg) -> dict:
@@ -4213,6 +4242,282 @@ def envelope_launches(env: dict, name: str) -> dict:
 
 
 # --------------------------------------------------------------------------
+# the examples slice (phase 14; IDEAL_PINS also used by
+# tests/test_torch_notebook.py)
+
+# analysis.ideal_epochs + evaluate at ReceiverConfig(): fixes, fix
+# failures, outliers, phase errors and the mean fix's error vs truth (m;
+# host arithmetic, the native core and numpy agree within 1e-8 m)
+IDEAL_PINS = {"fixes": 416, "failures": 0, "outliers": 0,
+              "phase_errors": 0, "err_m": 0.2797575}
+IDEAL_ERR_ATOL = 1e-6
+LIVE_CP_ATOL = 1.22e-4          # samples: live vs in-process code phases
+
+
+def _check_card_launches(tag, launches, steps, dev) -> None:
+    """_check_launches on the card (the CPU's plain path counts none)."""
+    if torch_device_type(dev) == "cuda":
+        _check_launches(tag, launches, steps)
+
+
+def _example(argv, dev, blocks=None) -> dict:
+    """synthetic_fix.run(argv + --device dev, blocks) with the launches
+    counted and the device's busy share traced: its values, launches and
+    busy share."""
+    from gps_sdr_tpu_torch.examples import synthetic_fix
+
+    args = synthetic_fix.parse_args(list(argv) + ["--device", str(dev)])
+    _reset_launches()
+    with device_busy(dev) as busy:
+        res = synthetic_fix.run(args, blocks=blocks)
+    return dict(res, launches=_read_launches(),
+                busy_share=busy["busy_share"])
+
+
+def _example_line(tag: str, res: dict) -> None:
+    what = (f"median trajectory error {res['median_m']:.3f} m"
+            if "median_m" in res else f"error {res['err_m']:.3f} m")
+    log(f"[{tag}] {'PASS' if res['ok'] else 'FAIL'}: {what}, "
+        f"{res['n_positions']} fixes, RAIM excluded {res['raim_excluded']}; "
+        f"{res['rtf']:.2f}x realtime, device busy "
+        f"{100 * res['busy_share']:.1f}%; K-steps {res['k_steps']}, "
+        f"launches {res['launches']}")
+
+
+def run_quickstart(cfg, sl: dict, blocks, dev) -> dict:
+    """14a: synthetic_fix.run at its defaults on phase 4's blocks: phase
+    4's fix count and ephemerides, its mean within 1 mm, PASS, kernel 1
+    and cheap once a K-step; then `python -m
+    gps_sdr_tpu_torch.examples.synthetic_fix --on-device --quiet` (no
+    --device) in a child process: exit 0 and PASS."""
+    import numpy as np
+
+    res = _example(("--quiet",), dev, blocks)
+    launches = res["launches"]
+    d_mean = float(np.linalg.norm(res["mean"] - sl["mean"]))
+    _example_line("14a", res)
+    log(f"[14a] phase 4's blocks: {res['n_positions']} fixes (phase 4 "
+        f"{sl['fixes']}), mean {d_mean:.3g} m from phase 4's")
+    if not (res["ok"] and res["n_positions"] == sl["fixes"]
+            and res["ephemerides"] == sl["ephemerides"] and d_mean <= 1e-3):
+        raise AssertionError("[14a] the quick start differs from phase 4")
+    steps = _want_steps(cfg, len(blocks))
+    if res["k_steps"] != steps:
+        raise AssertionError(f"[14a] K-steps {res['k_steps']} != {steps}")
+    _check_card_launches("14a", launches, steps, dev)
+
+    # no --device: the entry point's default, the card (a rehearsal on
+    # the CPU names it)
+    on_cpu = [] if torch_device_type(dev) == "cuda" else ["--device", "cpu"]
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-m", "gps_sdr_tpu_torch.examples.synthetic_fix",
+         "--on-device", "--quiet", *on_cpu], cwd=ROOT, capture_output=True,
+        text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    for line in child.stdout.splitlines():
+        log("      child: " + line)
+    lines = child.stdout.strip().splitlines()
+    log(f"[14a] python -m gps_sdr_tpu_torch.examples.synthetic_fix "
+        f"--on-device --quiet: rc {child.returncode} in {wall:.1f} s")
+    if child.returncode != 0 or not lines or lines[-1] != "PASS":
+        raise AssertionError(f"[14a] the entry point failed: "
+                             f"{child.stderr[-2000:]}")
+    return dict(launches=launches, err_m=res["err_m"], rtf=res["rtf"],
+                busy_share=res["busy_share"], child_wall_s=wall)
+
+
+def run_example_flags(cfg, dev) -> dict:
+    """14b: synthetic_fix --on-device with each EXAMPLE_FLAG_SETS entry:
+    kernel 1 and cheap once a K-step and the JAX example's verdict
+    (PASS for every set, PERF.md)."""
+    n_chunks = int(round(SLICE_SEC / cfg.block_sec)) // cfg.no_sec
+    steps = n_chunks * (cfg.no_sec // cfg.blocks_per_step)
+    out = {}
+    for flags in EXAMPLE_FLAG_SETS:
+        tag = " ".join(flags)
+        res = _example(("--on-device", "--quiet") + flags, dev)
+        _example_line(f"14b {tag}", res)
+        if not res["ok"]:
+            raise AssertionError(f"[14b] {tag}: FAIL where the JAX example "
+                                 "passes")
+        _check_card_launches(f"14b {tag}", res["launches"], steps, dev)
+        if res["k_steps"] != steps:
+            raise AssertionError(f"[14b] {tag}: K-steps {res['k_steps']}")
+        out[tag] = {k: res[k] for k in (
+            "launches", "err_m", "median_m", "vel_err_mps", "rtf",
+            "busy_share", "raim_excluded", "n_positions") if k in res}
+    return out
+
+
+def run_notebook_phase(cfg, dev) -> dict:
+    """14c: the notebook's functions on the card.  ideal_epochs + evaluate
+    give IDEAL_PINS; live_parallel on `dev` over two free UDP ports
+    consumes >= 3 epochs with kernel 1 and cheap once a K-step, and its
+    epochs equal an in-process Session run of the same blocks on the card
+    (frames equal, code phases within LIVE_CP_ATOL)."""
+    import io
+
+    import numpy as np
+
+    from gps_sdr_tpu_torch.examples import analysis
+    from gps_sdr_tpu_torch.kernel_profile import free_udp_ports
+    from gps_sdr_tpu_torch.runtime.session import Session
+    from gps_sdr_tpu_torch.utils.cplist import cp_arrays
+
+    epochs, truth = analysis.ideal_epochs(cfg)
+    ev = analysis.evaluate(cfg, epochs)
+    got = {"fixes": len(ev.positions), "failures": len(ev.fix_failures),
+           "outliers": len(ev.outliers), "phase_errors": ev.n_phase_errors,
+           "err_m": float(np.linalg.norm(ev.stat[0] - truth))}
+    log(f"[14c] ideal_epochs + evaluate: {json.dumps(got)}")
+    if {k: v for k, v in got.items() if k != "err_m"} != {
+            k: v for k, v in IDEAL_PINS.items() if k != "err_m"} or \
+            abs(got["err_m"] - IDEAL_PINS["err_m"]) > IDEAL_ERR_ATOL:
+        raise AssertionError(f"[14c] {got} != pinned {IDEAL_PINS}")
+
+    blocks = analysis.live_capture(cfg)
+    data, ctrl = free_udp_ports(2)
+    live = []
+    _reset_launches()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _, n = analysis.live_parallel(cfg, blocks, device=dev, data_port=data,
+                                      ctrl_port=ctrl, epochs=live)
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    steps = _want_steps(cfg, len(blocks))
+    log(f"[14c] live_parallel on {dev}, UDP ports {data}/{ctrl}: consumed "
+        f"{n} epochs in {wall:.2f} s; launches {launches}")
+    if n < 3:
+        raise AssertionError(f"[14c] only {n} live epochs")
+    _check_card_launches("14c live", launches, steps, dev)
+
+    session = Session(cfg, device=dev, record_epochs_to="memory")
+    session.run_source(iter(blocks))
+    want = session.records
+    if len(want) != n:
+        raise AssertionError(f"[14c] {n} live epochs, {len(want)} in "
+                             "process")
+    d_cp = 0.0
+    for e, rec in zip(live, want):
+        if e.skipped_samples != rec[0] or e.frames != rec[1] \
+                or sorted(e.code_phases) != sorted(rec[2]):
+            raise AssertionError("[14c] live frames differ from the "
+                                 "in-process run's")
+        for prn, lst in rec[2].items():
+            s_want, v_want = cp_arrays(lst)
+            s_got, v_got = cp_arrays(e.code_phases[prn])
+            if not np.array_equal(s_got, s_want):
+                raise AssertionError(f"[14c] PRN {prn}: stream numbers")
+            if len(v_want):
+                d_cp = max(d_cp, float(np.abs(v_got - v_want).max()))
+    if not d_cp <= LIVE_CP_ATOL:
+        raise AssertionError(f"[14c] live code phases {d_cp:.3g} samples "
+                             "from the in-process run's")
+    log(f"[14c] live epochs = the in-process Session's: frames equal, code "
+        f"phases within {d_cp:.3g} samples")
+    return dict(ideal=got, live_epochs=n, launches=launches, wall_s=wall,
+                max_cp_diff=d_cp)
+
+
+# the child of 14d: the `epochs` mode and analysis.load_epochs on the
+# recorded fixture (argv: fixture, --out prefix), then the modules loaded
+FIXTURE_CHILD = """
+import json, sys
+from gps_sdr_tpu_torch import cli
+from gps_sdr_tpu_torch.config import ReceiverConfig
+from gps_sdr_tpu_torch.examples import analysis
+fixture, prefix = sys.argv[1:3]
+rc = cli.main(["epochs", fixture, "--ui", "none", "--out", prefix])
+ev = analysis.evaluate(ReceiverConfig(), analysis.load_epochs(fixture))
+print("ANALYSIS", json.dumps([list(map(float, p)) for p in ev.positions]))
+print("FOREIGN_MODULES", sorted(m for m in sys.modules
+                                if m.split(".")[0] in ("jax", "gps_sdr_tpu")))
+sys.exit(rc)
+"""
+
+
+def run_fixture_phase(cfg, blocks, dev) -> dict:
+    """14d: `replay --record-epochs` of phase 4's blocks (an iq8 capture,
+    as phase 10 packs it) through cli_run on the card, kernel 1 and cheap
+    once a K-step; then a child process reads the fixture back with the
+    `epochs` mode and analysis.load_epochs: no jax or gps_sdr_tpu module
+    loaded, and both give the recording run's fixes."""
+    import tempfile
+
+    import numpy as np
+
+    from gps_sdr_tpu_torch.kernel_profile import HOST_SCALE
+    from gps_sdr_tpu_torch.runtime import _native
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cap = os.path.join(tmp, "cap.bin")
+        _native.pack_iq(HOST_SCALE * blocks).tofile(cap)
+        rec, one, two = (os.path.join(tmp, n) for n in (
+            "epochs.pickle", "one", "two"))
+        _reset_launches()
+        rc, _ = cli_run(["replay", cap, "--device", str(dev), "--ui", "none",
+                         "--out", one, "--record-epochs", rec])
+        launches = _read_launches()
+        if rc != 0:
+            raise AssertionError(f"[14d] replay rc {rc}")
+        _check_card_launches("14d", launches, _want_steps(cfg, len(blocks)),
+                             dev)
+        child = subprocess.run(
+            [sys.executable, "-c", FIXTURE_CHILD, rec, two], cwd=ROOT,
+            capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=ROOT))
+        lines = child.stdout.splitlines()
+        if child.returncode != 0:
+            raise AssertionError(f"[14d] child rc {child.returncode}: "
+                                 f"{child.stderr[-2000:]}")
+        pos_one, pos_two = _positions(one), _positions(two)
+        (ana,) = [ln for ln in lines if ln.startswith("ANALYSIS ")]
+        pos_ana = np.asarray(json.loads(ana.split(" ", 1)[1]), np.float64)
+        (mods,) = [ln for ln in lines if ln.startswith("FOREIGN_MODULES")]
+        log(f"[14d] recorded {len(pos_one)} fixes; the child's `epochs` "
+            f"{len(pos_two)} and load_epochs + evaluate {len(pos_ana)}; "
+            f"{mods}")
+        if mods != "FOREIGN_MODULES []":
+            raise AssertionError(f"[14d] the child loaded {mods}")
+        if not (len(pos_one) > 100 and np.array_equal(pos_two, pos_one)
+                and np.array_equal(pos_ana, pos_one)):
+            raise AssertionError("[14d] the fixture's fixes differ from "
+                                 "the recording run's")
+    return dict(launches=launches, fixes=len(pos_one))
+
+
+def run_examples(cfg, sl: dict, blocks, dev) -> dict:
+    """Phase 14: 14a-14d, each one's seconds logged."""
+    t0 = time.perf_counter()
+    out = {}
+    for key, tag, run in (
+            ("quickstart", "14a", lambda: run_quickstart(cfg, sl, blocks,
+                                                         dev)),
+            ("flags", "14b", lambda: run_example_flags(cfg, dev)),
+            ("notebook", "14c", lambda: run_notebook_phase(cfg, dev)),
+            ("fixture", "14d", lambda: run_fixture_phase(cfg, blocks, dev))):
+        t1 = time.perf_counter()
+        out[key] = run()
+        log(f"[{tag}] took {time.perf_counter() - t1:.1f} s")
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[14] phase 14 took {out['wall_s']:.1f} s")
+    return out
+
+
+def examples_launches(ex: dict, name: str) -> dict:
+    """Each phase-14 run's launches of kernel `name`."""
+    out = {"quickstart": ex["quickstart"]["launches"][name]}
+    for tag, res in ex["flags"].items():
+        out[tag] = res["launches"][name]
+    out["live_parallel"] = ex["notebook"]["launches"][name]
+    out["fixture_record"] = ex["fixture"]["launches"][name]
+    return out
+
+
+# --------------------------------------------------------------------------
 
 
 def _kernel_entry(name, source, replaces, launches, res) -> dict:
@@ -4226,6 +4531,8 @@ def _kernel_entry(name, source, replaces, launches, res) -> dict:
 
 def main() -> int:
     import torch
+
+    t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke run needs an "
@@ -4363,6 +4670,9 @@ def main() -> int:
     # 13. the envelope slice
     env = run_envelope(cfg, dev)
 
+    # 14. the examples slice: synthetic_fix and the analysis notebook
+    ex = run_examples(cfg, sl, blocks, dev)
+
     kernels = [
         _kernel_entry("wipeoff", "wipeoff.cu",
                       "gps_sdr_tpu/ops/pallas_kernels.py:171",
@@ -4431,6 +4741,8 @@ def main() -> int:
                              for k in timed}
     for entry in kernels:
         entry["launches_envelope"] = envelope_launches(env, entry["name"])
+        entry["launches_examples"] = examples_launches(ex, entry["name"])
+    log(f"[end] chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

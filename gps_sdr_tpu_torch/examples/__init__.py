@@ -1,2 +1,4 @@
-"""Long-run stress tools of the port: examples/soak.py and
-examples/endurance.py of the JAX package, on PyTorch."""
+"""The JAX package's examples on PyTorch: synthetic_fix.py (the quick
+start's closed loop), analysis.py with analysis.ipynb (the evaluation
+notebook and its live receiver), and the long-run stress tools soak.py
+and endurance.py."""

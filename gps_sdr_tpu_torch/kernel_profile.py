@@ -89,10 +89,12 @@ def _device_times(prof) -> dict:
     return out
 
 
-def synth_iq(scn, n_blocks: int, step: int, workers: int = 8):
+def synth_iq(scn, n_blocks: int, step: int, workers: int = 8,
+             noise_std: float = NOISE):
     """The scenario's IQ, complex64 [n_blocks, ngps], synthesized on the
     host in parallel threads of `step` blocks (numpy over whole arrays
-    releases the GIL).  Threads, not processes, so that no process
+    releases the GIL); the bytes of one synth_scenario_blocks call a
+    step, in order.  Threads, not processes, so that no process
     outlives the caller."""
     import concurrent.futures as cf
 
@@ -105,7 +107,7 @@ def synth_iq(scn, n_blocks: int, step: int, workers: int = 8):
     with cf.ThreadPoolExecutor(workers) as ex:
         parts = list(ex.map(
             lambda f: synth_scenario_blocks(scn, f, min(step, n_blocks - f),
-                                            noise_std=NOISE), firsts))
+                                            noise_std=noise_std), firsts))
     return np.concatenate(parts)
 
 

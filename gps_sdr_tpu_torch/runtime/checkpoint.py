@@ -29,13 +29,11 @@ from __future__ import annotations
 import pickle
 
 from gps_sdr_tpu_torch.ops.tracking import states_from_numpy, states_to_numpy
+from gps_sdr_tpu_torch.utils.cplist import FOREIGN_PACKAGES
 
 # v2: the Evaluator stores all_pos as _pos_buf/_pos_n and sat_results as
 # a TupleLog; PseudorangeEngine stores cp_hist as hist_snos/hist_cps
 FORMAT_VERSION = 2
-
-# top-level packages whose classes a port checkpoint never holds
-_FOREIGN = frozenset({"gps_sdr_tpu", "jax", "jaxlib"})
 
 
 class _PortUnpickler(pickle.Unpickler):
@@ -45,7 +43,7 @@ class _PortUnpickler(pickle.Unpickler):
 
     def find_class(self, module, name):
         # the top package, not a prefix: gps_sdr_tpu_torch is the port's
-        if module.split(".")[0] in _FOREIGN:
+        if module.split(".")[0] in FOREIGN_PACKAGES:
             raise ValueError(
                 f"checkpoint holds {module}.{name}: it was written by the "
                 "JAX package (gps_sdr_tpu), which the PyTorch port does not "

@@ -31,41 +31,25 @@ import pickle
 import socket
 
 from gps_sdr_tpu_torch.runtime.evaluator import EpochInput
-from gps_sdr_tpu_torch.utils.cplist import CodePhaseList
+from gps_sdr_tpu_torch.utils.cplist import CodePhaseUnpickler, plain_series
 
 DATA_PORT = 61431
 CTRL_PORT = 61432
 MAX_PAYLOAD = 65_504
 
 
-def _plain(series: dict) -> dict:
-    """{sat: [(stream_no, value), ...]} as plain lists of tuples."""
-    return {sat: list(lst) for sat, lst in series.items()}
-
-
 def _wire(epoch: EpochInput) -> bytes:
     """Wire format: 3-tuple, or 4-tuple when carrier freqs ride along
     (carrier_smoothing mode); receivers accept both."""
-    base = (epoch.skipped_samples, epoch.frames, _plain(epoch.code_phases))
+    base = (epoch.skipped_samples, epoch.frames, plain_series(epoch.code_phases))
     if epoch.carrier_freqs:
-        return pickle.dumps(base + (_plain(epoch.carrier_freqs),))
+        return pickle.dumps(base + (plain_series(epoch.carrier_freqs),))
     return pickle.dumps(base)
 
 
-class _Unpickler(pickle.Unpickler):
-    """Reads the JAX package's CodePhaseList as the port's and refuses
-    any other class of the JAX package or of JAX, before importing it."""
-
-    def find_class(self, module, name):
-        if (module, name) == ("gps_sdr_tpu.utils.cplist", "CodePhaseList"):
-            return CodePhaseList
-        if module.split(".")[0] in ("gps_sdr_tpu", "jax", "jaxlib"):
-            raise ValueError(f"epoch datagram refers to {module}.{name}")
-        return super().find_class(module, name)
-
-
 def _unwire(payload: bytes) -> EpochInput:
-    skipped, frames, coph, *rest = _Unpickler(io.BytesIO(payload)).load()
+    skipped, frames, coph, *rest = CodePhaseUnpickler(
+        io.BytesIO(payload), "epoch datagram").load()
     return EpochInput(skipped, frames, coph,
                       carrier_freqs=rest[0] if rest else None)
 

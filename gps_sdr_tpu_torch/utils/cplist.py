@@ -19,9 +19,16 @@ accepted everywhere: `cp_arrays` is the single conversion point.
 
 from __future__ import annotations
 
+import pickle
+
 import numpy as np
 
-__all__ = ["CodePhaseList", "cp_arrays", "cp_concat"]
+__all__ = ["CodePhaseList", "CodePhaseUnpickler", "FOREIGN_PACKAGES",
+           "cp_arrays", "cp_concat", "plain_series"]
+
+# top-level packages of the JAX package and of JAX, whose classes the
+# port never unpickles
+FOREIGN_PACKAGES = frozenset({"gps_sdr_tpu", "jax", "jaxlib"})
 
 
 class CodePhaseList:
@@ -73,6 +80,32 @@ class CodePhaseList:
     # pickle via the arrays (UDP transport / session recording)
     def __reduce__(self):
         return (CodePhaseList, (self.snos, self.vals))
+
+
+class CodePhaseUnpickler(pickle.Unpickler):
+    """Unpickles epochs written by either package: the JAX package's
+    CodePhaseList (gps_sdr_tpu.utils.cplist) is read as the port's, and
+    any other class whose top package is the JAX package's or JAX's
+    raises a ValueError naming it (`what` says what was being read),
+    before its module is imported."""
+
+    def __init__(self, file, what: str):
+        super().__init__(file)
+        self.what = what
+
+    def find_class(self, module, name):
+        if (module, name) == ("gps_sdr_tpu.utils.cplist", "CodePhaseList"):
+            return CodePhaseList
+        # the top package, not a prefix: gps_sdr_tpu_torch is the port's
+        if module.split(".")[0] in FOREIGN_PACKAGES:
+            raise ValueError(f"{self.what} refers to {module}.{name}")
+        return super().find_class(module, name)
+
+
+def plain_series(series: dict) -> dict:
+    """{sat: [(stream_no, value), ...]} as plain lists of tuples, which
+    either package unpickles without the other."""
+    return {sat: list(lst) for sat, lst in series.items()}
 
 
 def cp_arrays(lst) -> tuple[np.ndarray, np.ndarray]:

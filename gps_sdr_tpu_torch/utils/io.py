@@ -19,6 +19,8 @@ from xml.sax.saxutils import escape
 
 import numpy as np
 
+from gps_sdr_tpu_torch.utils.cplist import CodePhaseUnpickler, plain_series
+
 EPHEM_VALID_SEC = 2 * 3600
 # an almanac stays useful for weeks (it only has to predict visibility
 # and Doppler to a sweep bin or two — models/almanac.py)
@@ -121,11 +123,22 @@ def save_gpx_track(path: str, geo_track) -> None:
 
 def save_epoch_records(path: str, records: list) -> None:
     """Record the receiver->evaluator epoch stream for deterministic
-    replay (the reference's SAVE_PICKLE fixture, gpsrecv.py:205-213)."""
+    replay (the reference's SAVE_PICKLE fixture, gpsrecv.py:205-213).
+
+    Each record is (skipped_samples, frames, code_phases[,
+    carrier_freqs]); the series go to the file as plain lists of
+    (stream_no, value) tuples, as on the UDP wire, so that the JAX
+    package reads a fixture of the port without importing it."""
+    plain = [tuple(rec[:2]) + tuple(plain_series(s) for s in rec[2:])
+             for rec in records]
     with open(path, "wb") as f:
-        pickle.dump(records, f)
+        pickle.dump(plain, f)
 
 
 def load_epoch_records(path: str) -> list:
+    """The records of a fixture written by either package.  A JAX-written
+    fixture's CodePhaseList is read as the port's; any other class of
+    the JAX package or of JAX raises a ValueError naming it, before it is
+    imported."""
     with open(path, "rb") as f:
-        return pickle.load(f)
+        return CodePhaseUnpickler(f, f"epoch fixture {path}").load()

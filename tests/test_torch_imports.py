@@ -40,7 +40,8 @@ def test_every_module_imports_without_jax():
               "models.scenario_dev", "models.navmsg", "ops.pvt",
               "utils.profiling", "cli", "parallel", "parallel.mesh",
               "parallel.acquisition", "parallel.tracking", "bench",
-              "examples.soak", "examples.endurance"):
+              "examples.soak", "examples.endurance",
+              "examples.synthetic_fix", "examples.analysis"):
         assert f"gps_sdr_tpu_torch.{m}" in mods
     assert "gps_sdr_tpu_torch.host" not in mods
     code = ("import importlib, sys\n"
@@ -94,7 +95,9 @@ def test_port_loads_nothing_of_the_jax_package_nor_optional_packages():
                                     "gps_sdr_tpu_torch.utils.profiling",
                                     "gps_sdr_tpu_torch.bench",
                                     "gps_sdr_tpu_torch.examples.soak",
-                                    "gps_sdr_tpu_torch.examples.endurance"])
+                                    "gps_sdr_tpu_torch.examples.endurance",
+                                    "gps_sdr_tpu_torch.examples.synthetic_fix",
+                                    "gps_sdr_tpu_torch.examples.analysis"])
 def test_sharding_and_profiling_import_without_jax(module):
     """The sharding slice, the profiler, the bench and the long-run
     tools, each imported alone in a fresh interpreter, load no module of
