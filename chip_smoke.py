@@ -244,10 +244,36 @@ Phases (any failure raises and the script exits non-zero):
         back in a child process by the `epochs` mode and by
         analysis.load_epochs: no jax or gps_sdr_tpu module loaded, the
         recording run's fixes.
+ 15. the parity slice, the card half of tests/test_torch_parity_*.py (the
+     JAX package's tests twinned on the CPU), at ReceiverConfig():
+     a. the cheap kernel's bit-edge chain against its plain version over
+        8 chained K-steps of 11 channels (edge_chain_args: sign0 -1, 0
+        and 1, prev_signal 0, exact-zero means, slots at and one f32
+        step past the gate, unlocked channels, two chains erased
+        mid-run): edges, sign0, prev_sign, prev_signal and ms_time bit
+        for bit, the rest within _compare_cheap;
+     b. test_tracking_batched.py's fresh pull-in on phase 4's capture:
+        every satellite's channel 100 Hz off its true Doppler, K = 8, 16
+        and 32, through kernel 1 and through kernel 2 (with cheap):
+        locked from block 40, within 3 Hz at the end, the peak on > 80%
+        of the blocks; the plain path on the card locks on the same
+        blocks and agrees from block 40 (compare_chunks);
+     c. T = 11 K + 4 blocks at K = 8 and 32: the 4-block tail through
+        track_chunk_impl, the plain path's lock and code phases, and
+        test_batched_remainder_tail's bar against the K=1 loop;
+     d. a Session on the card through run_source (kernel 1) and
+        run_device_source (fused windows, 2 in flight, kernel 2) with a
+        scripted UI: CLEAR, HEIGHT and SET_HEIGHT after epoch 1 and STOP
+        after epoch 2, or CLOSE after epoch 1; each run ends at the
+        epoch and block the CPU Session ends at, with the CPU's effects;
+     e. phase 4's capture replayed cold with --ephem-cache, then warm
+        from the written cache: the first fix >= 1 epoch earlier, >= as
+        many fixes; a cache aged past 2 h refused.
 The line before the last holds the kernels' launches (launches_bench: a
 count for each of the bench's extras; launches_envelope: one for each
 phase-13 run; launches_examples: one for each phase-14 run in this
-process), errors, times and bounds as JSON; the last line is
+process; launches_parity: one for each phase-15 sub-phase), errors,
+times and bounds as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -628,6 +654,43 @@ def check_cheap_chain(cfg, states, chunk, codes, code_ffts,
     return dict(max_abs_err=worst, edges=n_edges, **times)
 
 
+def design_block(cfg, st, b, want, head, seg, delay, wipe, c_cnt, c_sum):
+    """Fill block b of the cheap stage's wipeoff sums head c64[C, K] and
+    seg c64[C, K, n_cyc] (CPU) so that its means after the retune
+    rotation are `want` c64[C, n_cyc + 1] (by source: 0 = carry + head,
+    j = segment j - 1): the raw sums are `want` rotated forward by the
+    angle the plain version applies, found by running it on blocks
+    0 .. b - 1 from state `st`.  c_cnt, c_sum: the partial code period
+    carried into block b (numpy); returns the one carried out of it."""
+    import numpy as np
+    import torch
+    from gps_sdr_tpu_torch.ops import hopper_cheap
+
+    cs, n_cyc = cfg.code_samples, cfg.n_cyc
+    if b:
+        prior = hopper_cheap.cheap_scan_plain(
+            cfg, b, head[:, :b], seg[:, :b], delay[:, :b], wipe[:, :b], st)
+        dphi, df_sum = prior.dphi, prior.df_sum
+    else:
+        dphi = df_sum = torch.zeros(head.shape[0])
+    w = wipe[:, b].numpy()
+    starts = np.concatenate(
+        [-c_cnt[:, None], w[:, None] + cs * np.arange(n_cyc)], axis=1)
+    t_m = (torch.from_numpy(starts.astype(np.float32)) + 0.5 * cs) \
+        / cfg.sample_rate
+    ang = dphi[:, None] + hopper_cheap.TWO_PI * df_sum[:, None] * t_m
+    raw = want * torch.complex(torch.cos(ang), torch.sin(ang))
+    seg[:, b] = raw[:, 1:] * cs
+    cnt0 = c_cnt + w
+    head[:, b] = torch.where(
+        torch.from_numpy(cnt0 > 0),
+        raw[:, 0] * torch.from_numpy(np.maximum(cnt0, 1).astype(
+            np.float32)) - torch.from_numpy(c_sum), 0)
+    c_sum = np.where(w > 0, seg[:, b, n_cyc - 1].numpy(), 0).astype(
+        np.complex64)
+    return np.where(w > 0, cs - w, 0), c_sum
+
+
 def cheap_case(cfg, n_ch, seed, device):
     """A crafted cheap-kernel case made with numpy from `seed`: the
     arguments of cheap_scan (cfg, K, head, seg, delay, wipe, state) on
@@ -646,7 +709,7 @@ def cheap_case(cfg, n_ch, seed, device):
     correlation and df rings; ms_time past 2^24 in even channels."""
     import numpy as np
     import torch
-    from gps_sdr_tpu_torch.ops import hopper_cheap, tracking
+    from gps_sdr_tpu_torch.ops import tracking
 
     rng = np.random.default_rng(seed)
     k, cs, n_cyc = cfg.blocks_per_step, cfg.code_samples, cfg.n_cyc
@@ -705,31 +768,9 @@ def cheap_case(cfg, n_ch, seed, device):
         want = torch.from_numpy((amp * signs * np.exp(1j * theta)).astype(
             np.complex64))
         n_jump_blocks += int(jumps.sum())
-        # the plain version's retune angle for this block
-        if b:
-            prior = hopper_cheap.cheap_scan_plain(
-                cfg, b, head[:, :b], seg[:, :b], delay_t[:, :b],
-                wipe_t[:, :b], st)
-            dphi, df_sum = prior.dphi, prior.df_sum
-        else:
-            dphi = df_sum = torch.zeros(n_ch)
-        w = wipe[:, b]
-        starts = np.concatenate(
-            [-c_cnt[:, None], w[:, None] + cs * np.arange(n_cyc)], axis=1)
-        t_m = (torch.from_numpy(starts.astype(np.float32)) + 0.5 * cs) \
-            / cfg.sample_rate
-        ang = dphi[:, None] + hopper_cheap.TWO_PI * df_sum[:, None] * t_m
-        raw = want * torch.complex(torch.cos(ang), torch.sin(ang))
-        seg[:, b] = raw[:, 1:] * cs
-        cnt0 = c_cnt + w
-        n_compact += int((cnt0 == 0).sum())
-        head[:, b] = torch.where(
-            torch.from_numpy(cnt0 > 0),
-            raw[:, 0] * torch.from_numpy(np.maximum(cnt0, 1).astype(
-                np.float32)) - torch.from_numpy(c_sum), 0)
-        c_sum = np.where(w > 0, seg[:, b, n_cyc - 1].numpy(), 0).astype(
-            np.complex64)
-        c_cnt = np.where(w > 0, cs - w, 0)
+        n_compact += int((c_cnt + wipe[:, b] == 0).sum())
+        c_cnt, c_sum = design_block(cfg, st, b, want, head, seg, delay_t,
+                                    wipe_t, c_cnt, c_sum)
     st = tracking.ChannelState(*(v.to(device) for v in st))
     facts = dict(compacted_blocks=n_compact, jump_blocks=n_jump_blocks,
                  wipes=sorted(set(wipe.ravel().tolist())))
@@ -4518,6 +4559,642 @@ def examples_launches(ex: dict, name: str) -> dict:
 
 
 # --------------------------------------------------------------------------
+# the parity slice (phase 15): the card half of tests/test_torch_parity_*.py
+# (the JAX package's tests twinned on the CPU), at the product width
+
+EDGE_STEPS = 8                  # 15a: chained K-steps
+EDGE_UNLOCKED = (9, 10)         # 15a: channels kept unlocked
+EDGE_ERASED = (2, 5)            # 15a: channels erased before step 4
+PULL_IN_BLOCKS = 64             # 15b: test_tracking_batched.py's stream[:64]
+PULL_IN_OFFSET = 100.0          # Hz off the true Doppler (a 200 Hz grid)
+PULL_IN_K = (8, 16, 32)
+TAIL_K = (8, 32)                # 15c: T = 11 K + 4
+
+
+@contextlib.contextmanager
+def plain_path():
+    """Run the port's plain versions in place of the three kernels, on
+    whatever device the tensors are (the card's plain path): the
+    wrappers that ops/tracking.py calls are swapped for the plain
+    functions while the block runs."""
+    from gps_sdr_tpu_torch.ops import hopper_cheap, hopper_wipeoff
+
+    saved = (hopper_wipeoff.mix_wipeoff, hopper_wipeoff.mix_wipeoff_vpu,
+             hopper_cheap.cheap_scan)
+    hopper_wipeoff.mix_wipeoff = hopper_wipeoff.mix_wipeoff_plain
+    hopper_wipeoff.mix_wipeoff_vpu = hopper_wipeoff.mix_wipeoff_vpu_plain
+    hopper_cheap.cheap_scan = hopper_cheap.cheap_scan_plain
+    try:
+        yield
+    finally:
+        (hopper_wipeoff.mix_wipeoff, hopper_wipeoff.mix_wipeoff_vpu,
+         hopper_cheap.cheap_scan) = saved
+
+
+def edge_chain_state(cfg, n_ch, rng):
+    """15a's starting state (CPU): every channel but EDGE_UNLOCKED locked,
+    with test_edge_scan_equiv._case's mix of chains: sign0 in {-1, 0, 1}
+    (0: a fresh chain, prev_sign 0), prev_signal 0 on channels 0 and 1
+    and else +-U(0, 2) on a 1/64 grid, ms_time U[0, 50000) and 2^25 + 3
+    on channel 4; the df ring zero (a locked channel's PLL then commands
+    nothing, see edge_chain_args), full wrapped correlation rings."""
+    import numpy as np
+    import torch
+    from gps_sdr_tpu_torch.ops import tracking
+
+    cs, hist, no_sec = cfg.code_samples, cfg.corr_hist_len, cfg.no_sec
+    ch = np.arange(n_ch)
+    sign0 = np.resize([0, 1, -1], n_ch).astype(np.int8)
+    prev_sign = np.where(sign0 == 0, 0, rng.choice([-1, 1], n_ch))
+    prev_signal = np.where(ch < 2, 0.0, rng.choice([-1.0, 1.0], n_ch)
+                           * np.round(rng.uniform(0.0, 2.0, n_ch) * 64) / 64)
+    ms_time = np.where(ch == 4, 2 ** 25 + 3, rng.integers(0, 50000, n_ch))
+    carry_cnt = np.where(ch % 2 == 0, rng.integers(1, cs, n_ch), 0)
+    carry_sum = np.round(rng.uniform(-2, 2, n_ch) * 64) / 64 * carry_cnt
+    locked = ~np.isin(ch, EDGE_UNLOCKED)
+    return tracking.init_channel_states(cfg, n_ch, "cpu")._replace(
+        active=torch.ones(n_ch, dtype=torch.bool),
+        locked=torch.from_numpy(locked),
+        std_dev=torch.from_numpy(np.where(locked, 0.25, 0.05).astype(
+            np.float32)),
+        sign0=torch.from_numpy(sign0),
+        prev_sign=torch.from_numpy(prev_sign.astype(np.int8)),
+        prev_signal=torch.from_numpy(prev_signal.astype(np.float32)),
+        ms_time=torch.from_numpy(ms_time.astype(np.int32)),
+        carry_sum=torch.from_numpy(carry_sum.astype(np.complex64)),
+        carry_cnt=torch.from_numpy(carry_cnt.astype(np.int32)),
+        corr_buf=torch.from_numpy(rng.choice([-1, 1], (n_ch, hist)).astype(
+            np.int8)),
+        corr_cnt=torch.full((n_ch,), hist, dtype=torch.int32),
+        corr_idx=torch.from_numpy(rng.integers(0, hist, n_ch).astype(
+            np.int32)),
+        df_cnt=torch.full((n_ch,), no_sec, dtype=torch.int32),
+        df_idx=torch.from_numpy(rng.integers(0, no_sec, n_ch).astype(
+            np.int32)))
+
+
+def edge_chain_args(cfg, st, rng, step: int):
+    """The arguments of cheap_scan for one K-step of 15a from state `st`
+    (CPU), and what the step holds.
+
+    The per-ms means are designed after the retune rotation, as
+    cheap_case designs them (the raw sums are the designed means rotated
+    forward by the angle the plain version applies).  On the locked
+    channels they are real, +-U(0.2, 2) on a 1/64 grid with 15% exact
+    zeros: the PLL then measures no phase, its df ring stays zero and
+    the rotation is the identity, so the means reach both the kernel and
+    its plain version exactly (segment sums are means times cs, the
+    carry-completed slot's sum a multiple of its count) and every edge
+    decision is an exact one.  In block 0 the gate is the state's
+    sigma, the same number on both sides, and two slot pairs sit at it:
+    |mean - previous| equal to edge_sigma * sigma in f32 (no edge), and
+    one f32 step past it.  The EDGE_UNLOCKED channels hold a 0.8 rad
+    phase, so their PLL never locks and their edge chain never runs.
+    Wipe delays 0 and cs - 1 in every channel (compaction, all n_cyc + 1
+    slots)."""
+    import numpy as np
+    import torch
+
+    k, cs, n_cyc = cfg.blocks_per_step, cfg.code_samples, cfg.n_cyc
+    n_ch, sl = st.prn.shape[0], n_cyc + 1
+    exact = st.locked.numpy().copy()
+    seq = np.resize([0, 0, cs - 1, 0, cs // 2, cs - 1, 1, 0], k)
+    wipe = np.stack([np.roll(seq, c + step) for c in range(n_ch)]).astype(
+        np.int32)
+    delay = np.where(rng.random((n_ch, k)) < 0.3, -1,
+                     rng.integers(0, cs, (n_ch, k))).astype(np.int32)
+    head = torch.zeros((n_ch, k), dtype=torch.complex64)
+    seg = torch.zeros((n_ch, k, n_cyc), dtype=torch.complex64)
+    wipe_t, delay_t = torch.from_numpy(wipe), torch.from_numpy(delay)
+    c_cnt, c_sum = st.carry_cnt.numpy(), st.carry_sum.numpy()
+    gate = np.float32(cfg.edge_sigma) * st.std_dev.numpy()
+    facts = dict(zeros=0, at_gate=0, past_gate=0)
+    for b in range(k):
+        mag = np.round(rng.uniform(0.2, 2.0, (n_ch, sl)) * 64) / 64
+        re = rng.choice([-1.0, 1.0], (n_ch, sl)) * mag
+        re[rng.random((n_ch, sl)) < 0.15] = 0.0
+        if b == 0:
+            for lo, past in ((5, False), (9, True)):
+                re[:, lo] = 0.5
+                v = (np.float32(0.5) - gate).astype(np.float32)
+                re[:, lo + 1] = np.nextafter(v, np.float32(-np.inf)) \
+                    if past else v
+        facts["zeros"] += int((re[exact] == 0).sum())
+        if b == 0:
+            d = np.abs(re[:, 6].astype(np.float32) - np.float32(0.5))
+            facts["at_gate"] += int((exact & (d == gate)).sum())
+            d = np.abs(re[:, 10].astype(np.float32) - np.float32(0.5))
+            facts["past_gate"] += int((exact & (d > gate)).sum())
+        theta = 0.8 + rng.normal(0.0, 0.02, (n_ch, sl))
+        want = np.where(exact[:, None], re,
+                        re * np.exp(1j * theta)).astype(np.complex64)
+        c_cnt, c_sum = design_block(cfg, st, b, torch.from_numpy(want),
+                                    head, seg, delay_t, wipe_t, c_cnt, c_sum)
+    return (cfg, k, head, seg, delay_t, wipe_t, st), facts
+
+
+def edge_chain_next(st, co):
+    """The next step's state from a CheapOut `co` (CPU), as
+    tracking.channel_step_k carries it (carry_sum de-rotated by dphi)."""
+    import torch
+
+    keep = {name: getattr(co, name) for name in (
+        "carry_cnt", "sign0", "prev_sign", "prev_signal", "ms_time",
+        "std_dev", "locked", "df_buf", "df_cnt", "df_idx", "corr_buf",
+        "corr_cnt", "corr_idx")}
+    carry = co.carry_sum * torch.complex(torch.cos(co.dphi),
+                                         -torch.sin(co.dphi))
+    return st._replace(carry_sum=carry, **keep)
+
+
+EDGE_EXACT_FIELDS = ("edge_valid", "sign0_seq", "sign0", "prev_sign",
+                     "prev_signal", "ms_time")
+
+
+def run_edge_chain(cfg, dev, on_step=None) -> dict:
+    """15a: the cheap kernel's bit-edge chain against its plain version on
+    the card, over EDGE_STEPS chained K-steps of edge_chain_args at the
+    product width (cfg.max_sat channels): the edges (valid flags, their
+    ms and local sample), the per-block sign0, and the carried sign0,
+    prev_sign, prev_signal and ms_time bit for bit; every other field
+    within _compare_cheap's tolerances.  Channels EDGE_ERASED are erased
+    before step 4 (a fresh chain mid-run, as a stream gap does).  The
+    run must reach what it is made for: edges accepted, fresh chains
+    started, means exactly zero, slots at and one step past the gate,
+    and the unlocked channels unlocked throughout.  (n_valid 0 of
+    test_edge_scan_equiv.py has no counterpart here: a K-step block
+    holds n_cyc - 1 to n_cyc + 1 valid slots; a channel whose chain does
+    not run is the unlocked one.)  on_step(args, out), if given, gets
+    each step's arguments and the plain version's result on the CPU
+    (tests/test_torch_parity_tracking.py holds them to the JAX
+    package's reference chain)."""
+    import numpy as np
+    import torch
+    from gps_sdr_tpu_torch.ops import hopper_cheap, tracking
+
+    rng = np.random.default_rng(15)
+    n_ch = cfg.max_sat
+    st = edge_chain_state(cfg, n_ch, rng)
+    totals = dict(steps=EDGE_STEPS, edges=0, fresh_chains=0, zeros=0,
+                  at_gate=0, past_gate=0, max_abs_err=0.0)
+    _reset_launches()
+    for step in range(EDGE_STEPS):
+        if step == 4:
+            idx = torch.tensor(EDGE_ERASED)
+            st = st._replace(**{name: getattr(st, name).index_fill(0, idx, 0)
+                                for name in ("sign0", "prev_sign",
+                                             "carry_sum", "carry_cnt")})
+        args, facts = edge_chain_args(cfg, st, rng, step)
+        on_dev = args[:2] + tuple(a.to(dev) for a in args[2:6]) + (
+            tracking.ChannelState(*(v.to(dev) for v in st)),)
+        got = hopper_cheap.cheap_scan(*on_dev)
+        want = hopper_cheap.cheap_scan_plain(*on_dev)
+        totals["max_abs_err"] = max(totals["max_abs_err"], _compare_cheap(
+            got, want, cfg, on_dev[-1]))
+        for name in EDGE_EXACT_FIELDS:
+            if not torch.equal(getattr(got, name), getattr(want, name)):
+                raise AssertionError(f"[15a] step {step}: {name} differs "
+                                     "from the plain version")
+        v = want.edge_valid
+        for name in ("edge_ms", "edge_local"):
+            if not torch.equal(getattr(got, name)[v],
+                               getattr(want, name)[v]):
+                raise AssertionError(f"[15a] step {step}: {name} differs "
+                                     "at valid edges")
+        co = hopper_cheap.CheapOut(*(x.cpu() for x in want))
+        if on_step is not None:
+            on_step(args, co)
+        if co.locked_seq[list(EDGE_UNLOCKED)].any():
+            raise AssertionError(f"[15a] step {step}: an unlocked channel "
+                                 "locked")
+        totals["edges"] += int(co.edge_valid.sum())
+        totals["fresh_chains"] += int(((st.sign0 == 0)
+                                       & (co.sign0 != 0)).sum())
+        for key in ("zeros", "at_gate", "past_gate"):
+            totals[key] += facts[key]
+        st = edge_chain_next(st, co)
+    _sync(dev)
+    totals["launches"] = _read_launches()
+    if torch_device_type(dev) == "cuda" and totals["launches"] != dict(
+            wipeoff=0, wipeoff_vpu=0, cheap=EDGE_STEPS):
+        raise AssertionError(f"[15a] launches {totals['launches']}")
+    if not (totals["edges"] and totals["zeros"] and totals["at_gate"]
+            and totals["past_gate"]
+            and totals["fresh_chains"] >= 1 + len(EDGE_ERASED)):
+        raise AssertionError(f"[15a] the case missed its purpose: {totals}")
+    log(f"[15a] cheap kernel edge chain vs plain, {n_ch} channels x "
+        f"{EDGE_STEPS} K-steps: {json.dumps(totals)}")
+    return totals
+
+
+def true_doppler(scn, blocks) -> dict:
+    """{prn: Hz} at the centres of the given block indices: the carrier
+    frequency an ideal tracker reports (-L1 d tau / dt over +-0.5 s, as
+    tests/test_carrier_smoothing.py computes it)."""
+    import numpy as np
+    from gps_sdr_tpu_torch.config import L1_FREQ
+
+    cfg = scn.cfg
+    t = scn.t_rx0 + (np.asarray(blocks, np.float64) * cfg.ngps
+                     + cfg.ngps / 2) / cfg.sample_rate
+    out = {}
+    for sat in scn.sats:
+        tau0, _ = scn.sat_states(t - 0.5, sat)
+        tau1, _ = scn.sat_states(t + 0.5, sat)
+        out[sat.prn] = -(tau1 - tau0) * L1_FREQ
+    return out
+
+
+def parity_start(cfg, scn, block0, dev, offset: float = 0.0):
+    """(states, codes, ffts, slot PRNs, found) on `dev`: the scenario's
+    satellites in slots 0..5 in PRN order, each reset at its
+    acquisition delay on block 0 and at its true Doppler +offset (even
+    slots) or -offset (odd slots), or at its acquired frequency when
+    offset is 0; the other slots empty."""
+    import numpy as np
+    import torch
+    from gps_sdr_tpu_torch.ops import cacode, tracking
+    from gps_sdr_tpu_torch.ops.acquisition import acquire_all
+
+    truth = sorted(s.prn for s in scn.sats)
+    found = acquire_all(cfg, block0, cacode.ca_fft_table(cfg), prns=truth,
+                        device=dev)
+    by_prn = {f[1]: f for f in found}
+    if sorted(by_prn) != truth:
+        raise AssertionError(f"[15] block 0 acquired {sorted(by_prn)}, "
+                             f"not {truth}")
+    f0 = true_doppler(scn, [0])
+    st = tracking.init_channel_states(cfg, cfg.max_sat, dev)
+    codes = np.zeros((cfg.max_sat, cfg.code_samples), np.float32)
+    ffts = np.zeros((cfg.max_sat, cfg.code_samples), np.complex64)
+    for i, prn in enumerate(truth):
+        freq = (float(f0[prn][0]) + (offset if i % 2 == 0 else -offset)
+                if offset else by_prn[prn][2])
+        st = tracking.reset_channel(st, i, prn, freq,
+                                    int(by_prn[prn][3]) % cfg.code_samples,
+                                    cfg)
+        codes[i] = cacode.ca_table(cfg)[prn]
+        ffts[i] = cacode.ca_fft_table(cfg)[prn]
+    slots = truth + [0] * (cfg.max_sat - len(truth))
+    return (st, torch.as_tensor(codes, device=dev),
+            torch.as_tensor(ffts, device=dev), slots, found)
+
+
+def track_kernels_and_plain(cfg, start, blocks_dev, dev) -> dict:
+    """One chunk from `start` through the kernels (their launches counted)
+    and through the plain path on the same device: both runs' states and
+    host outputs."""
+    from gps_sdr_tpu_torch.ops import tracking
+
+    st, codes, ffts = start[:3]
+    _reset_launches()
+    ks, ko = tracking.track_chunk_batched_impl(cfg, st, blocks_dev, 1,
+                                               codes, ffts)
+    _sync(dev)
+    launches = _read_launches()
+    with plain_path():
+        ps, po = tracking.track_chunk_batched_impl(cfg, st, blocks_dev, 1,
+                                                   codes, ffts)
+    return dict(kernel=(ks, tracking.outs_to_numpy(ko)),
+                plain=(ps, tracking.outs_to_numpy(po)), launches=launches)
+
+
+def _same_lock(tag: str, run: dict) -> None:
+    """The kernels' run locks on the same blocks as the plain path's."""
+    import numpy as np
+
+    (_, ko), (_, po) = run["kernel"], run["plain"]
+    if not np.array_equal(ko.locked, po.locked):
+        diff = np.argwhere(ko.locked != po.locked)
+        raise AssertionError(f"[{tag}] kernels and plain path lock on "
+                             f"other blocks: (block, slot) {diff[:8]}")
+
+
+def _sliced(outs, lo: int):
+    return type(outs)(*(x[lo:] for x in outs))
+
+
+def run_pull_in(cfg0, scn, blocks, dev) -> dict:
+    """15b: the first PULL_IN_BLOCKS blocks of phase 4's capture, every
+    satellite's channel reset PULL_IN_OFFSET Hz off its true Doppler,
+    at K in PULL_IN_K through each wipeoff kernel and cheap.  The bar of
+    test_tracking_batched.py::test_fresh_channel_pull_in on every
+    satellite: locked from block 40, within 3 Hz of the true Doppler at
+    the end, the peak found on > 80% of the blocks from block 8.  The
+    plain path on the card locks on the same blocks, and from block 40
+    holds the kernels' run to compare_chunks."""
+    import numpy as np
+    import torch
+
+    n = PULL_IN_BLOCKS
+    chunk = torch.as_tensor(np.ascontiguousarray(blocks[:n]), device=dev)
+    f_end = true_doppler(scn, [n - 1])
+    out, launches = {}, {}
+    for mxu in (True, False):
+        for k in PULL_IN_K:
+            cfg = cfg0.replace(blocks_per_step=k, use_mxu_wipeoff=mxu)
+            tag = f"15b K={k} {'kernel 1' if mxu else 'kernel 2'}"
+            start = parity_start(cfg, scn, blocks[0], dev, PULL_IN_OFFSET)
+            run = track_kernels_and_plain(cfg, start, chunk, dev)
+            slots, found = start[3], start[4]
+            res = {}
+            for side in ("kernel", "plain"):
+                st, o = run[side]
+                freq = st.freq.cpu().numpy()
+                worst = 0.0
+                for i, prn in enumerate(slots[:len(scn.sats)]):
+                    df = abs(float(freq[i]) - float(f_end[prn][0]))
+                    found_frac = float((o.code_phase[8:, i] >= 0).mean())
+                    if not (o.locked[40:, i].all() and df < 3.0
+                            and found_frac > 0.8):
+                        raise AssertionError(
+                            f"[{tag}] {side}: PRN {prn} locked from 40 "
+                            f"{bool(o.locked[40:, i].all())}, |df| "
+                            f"{df:.2f} Hz, peak on {found_frac:.2f}")
+                    worst = max(worst, df)
+                res[f"{side}_max_df_hz"] = worst
+            _same_lock(tag, run)
+            cmp = compare_chunks(tag, [(_sliced(run["kernel"][1], 40), slots,
+                                        found)],
+                                 [(_sliced(run["plain"][1], 40), slots,
+                                   found)])
+            steps = n // k
+            if torch_device_type(dev) == "cuda":
+                want = {"wipeoff": steps if mxu else 0,
+                        "wipeoff_vpu": 0 if mxu else steps, "cheap": steps}
+                if run["launches"] != want:
+                    raise AssertionError(f"[{tag}] launches "
+                                         f"{run['launches']} != {want}")
+            first = [int(np.argmax(run["kernel"][1].locked[:, i]))
+                     for i in range(len(scn.sats))]
+            log(f"[{tag}]: every PRN locked from block {max(first)} "
+                f"(first lock {first}), final |df| kernel "
+                f"{res['kernel_max_df_hz']:.3f} / plain "
+                f"{res['plain_max_df_hz']:.3f} Hz; plain path from block "
+                f"40: {json.dumps(cmp)}; launches {run['launches']}")
+            out[(k, mxu)] = dict(res, first_lock=first, compare=cmp)
+            for name, v in run["launches"].items():
+                launches[name] = launches.get(name, 0) + v
+    return dict(runs=out, launches=launches)
+
+
+def run_tail(cfg0, scn, blocks, dev) -> dict:
+    """15c: T = 11 K + 4 blocks of phase 4's capture at K in TAIL_K from
+    the acquired channels: 11 fused K-steps (kernel 1 and cheap once
+    each) and a 4-block tail through track_chunk_impl (counted), locking
+    as the plain path on the card does and held to it by
+    compare_chunks from block 40; against the K=1 loop over the same
+    blocks, test_batched_remainder_tail.py's bar: the same final lock,
+    the frequency within 1 Hz, the tail's code phases within 0.2
+    samples where both found the peak."""
+    import numpy as np
+    import torch
+    from gps_sdr_tpu_torch.ops import tracking
+
+    out, launches = {}, {}
+    for k in TAIL_K:
+        t = 11 * k + 4
+        cfg = cfg0.replace(blocks_per_step=k)
+        tag = f"15c K={k} T={t}"
+        chunk = torch.as_tensor(np.ascontiguousarray(blocks[:t]), device=dev)
+        start = parity_start(cfg, scn, blocks[0], dev)
+        tails = []
+        real = tracking.track_chunk_impl
+
+        def counted(*args, **kw):
+            tails.append(int(args[2].shape[0]))
+            return real(*args, **kw)
+        tracking.track_chunk_impl = counted
+        try:
+            run = track_kernels_and_plain(cfg, start, chunk, dev)
+        finally:
+            tracking.track_chunk_impl = real
+        if tails != [4, 4]:
+            raise AssertionError(f"[{tag}] tails through track_chunk_impl "
+                                 f"{tails}, not 4 blocks on each run")
+        _same_lock(tag, run)
+        slots, found = start[3], start[4]
+        cmp = compare_chunks(tag, [(_sliced(run["kernel"][1], 40), slots,
+                                    found)],
+                             [(_sliced(run["plain"][1], 40), slots, found)])
+        seq_st, seq_o = tracking.track_chunk_impl(cfg, *start[:1], chunk, 1,
+                                                  *start[1:3])
+        seq_o = tracking.outs_to_numpy(seq_o)
+        ks, ko = run["kernel"]
+        if ko.code_phase.shape[0] != t or not torch.equal(
+                ks.locked.cpu(), seq_st.locked.cpu()):
+            raise AssertionError(f"[{tag}] final lock differs from the K=1 "
+                                 "loop")
+        dfreq = float((ks.freq - seq_st.freq).abs().max())
+        both = (seq_o.code_phase[-4:] >= 0) & (ko.code_phase[-4:] >= 0)
+        dcp = float(np.abs(seq_o.code_phase[-4:] - ko.code_phase[-4:])[
+            both].max(initial=0.0))
+        if dfreq > 1.0 or dcp > 0.2 or not both.any():
+            raise AssertionError(f"[{tag}] against the K=1 loop: freq "
+                                 f"{dfreq:.3f} Hz, tail code phase {dcp:.3f}")
+        steps = (t - 4) // k
+        if torch_device_type(dev) == "cuda" and run["launches"] != {
+                "wipeoff": steps, "wipeoff_vpu": 0, "cheap": steps}:
+            raise AssertionError(f"[{tag}] launches {run['launches']}")
+        dtail = float(np.abs(ko.code_phase[-4:] - run["plain"][1].code_phase[
+            -4:])[both].max(initial=0.0))
+        log(f"[{tag}]: tail of 4 blocks through track_chunk_impl; plain "
+            f"path from block 40: {json.dumps(cmp)}; tail code phases "
+            f"kernels vs plain {dtail:.3g}, vs the K=1 loop {dcp:.3g} "
+            f"samples, final freq vs K=1 {dfreq:.3g} Hz; launches "
+            f"{run['launches']}")
+        out[k] = dict(compare=cmp, tail_vs_plain=dtail, tail_vs_k1=dcp,
+                      freq_vs_k1=dfreq)
+        for name, v in run["launches"].items():
+            launches[name] = launches.get(name, 0) + v
+    return dict(runs=out, launches=launches)
+
+
+class ScriptedUI:
+    """A reporter that emits events[n] after its n-th epoch (1-based),
+    counts the epochs and records close() (tests/test_session_controls.py's
+    FakeUI and EventOnceUI in one)."""
+
+    def __init__(self, events: dict):
+        self.events, self.n, self.closed = events, 0, False
+
+    def update(self, frames, summary, ev):
+        self.n += 1
+
+    def get_events(self):
+        return list(self.events.get(self.n, ()))
+
+    def close(self):
+        self.closed = True
+
+
+# 15d's two scripts: the controls after epoch 1 and STOP after epoch 2;
+# CLOSE after epoch 1
+UI_SCRIPTS = {"stop": {1: ["CLEAR", "HEIGHT", ("SET_HEIGHT", 123.0)],
+                       2: ["STOP"]},
+              "close": {1: ["CLOSE"]}}
+
+
+def _scripted_session(cfg, dev, script: str, run):
+    """A Session on `dev` with the evaluator's statistics seeded (so CLEAR
+    has something to clear) and UI_SCRIPTS[script], driven by
+    run(session); returns what the script must have done."""
+    from gps_sdr_tpu_torch.runtime.session import Session
+
+    ui = ScriptedUI(UI_SCRIPTS[script])
+    s = Session(cfg, device=dev, reporter=ui)
+    s.evaluator.positions = [[0.0, 1.0, 2.0, 3.0]]
+    s.evaluator.stat = (0.0, 0.0, 1, 0)
+    _reset_launches()
+    run(s)
+    _sync(dev)
+    ev = s.evaluator
+    return dict(epochs=ui.n, stopped=s.receiver._stop, closed=ui.closed,
+                blocks=s.receiver.status.blocks_processed,
+                k_steps=s.receiver.status.k_steps,
+                cleared=ev.positions == [] and ev.stat is None,
+                conf_height=ev.cfg.conf_height, height=ev.cfg.height,
+                launches=_read_launches())
+
+
+def run_session_controls(cfg0, scn, blocks, dev) -> dict:
+    """15d: the UI controls on a Session on the card, through run_source
+    (phase 4's blocks, kernel 1) and run_device_source (the scenario
+    synthesized on the card, fused windows of 2 chunks, 2 windows in
+    flight, kernel 2).  Each script ends the run at the epoch (and block)
+    where the same Session on the CPU ends it; STOP's run cleared the
+    statistics, toggled the height constraint and set the height to 123
+    m; CLOSE stopped the run and closed the reporter; the kernels ran
+    once a K-step of the card's runs."""
+    from gps_sdr_tpu_torch.models.scenario_dev import DeviceScenarioSynth
+
+    paths = {
+        "run_source": (cfg0, lambda s: s.run_source(iter(blocks))),
+        "run_device_source": (
+            cfg0.replace(use_mxu_wipeoff=False, chunks_per_download=2,
+                         download_windows_in_flight=2),
+            lambda s: s.run_device_source(DeviceScenarioSynth(
+                scn, noise_std=NOISE, knot_interp_step=0.1,
+                device=s.device).chunk_planar, 8))}
+    out, launches = {}, {}
+    for path, (cfg, run) in paths.items():
+        for script in UI_SCRIPTS:
+            tag = f"15d {path} {script.upper()}"
+            card = _scripted_session(cfg, dev, script, run)
+            cpu = _scripted_session(cfg, "cpu", script, run)
+            keys = ("epochs", "blocks", "stopped", "closed", "cleared",
+                    "conf_height", "height")
+            if any(card[key] != cpu[key] for key in keys):
+                raise AssertionError(f"[{tag}] card {card} against the CPU "
+                                     f"{cpu}")
+            want = (dict(stopped=True, closed=False, cleared=True,
+                         conf_height=True, height=123.0)
+                    if script == "stop" else dict(stopped=True, closed=True))
+            if any(card[key] != v for key, v in want.items()):
+                raise AssertionError(f"[{tag}] {card}: not {want}")
+            if torch_device_type(dev) == "cuda":
+                k1 = path == "run_source"
+                n = card["k_steps"]
+                if card["launches"] != {"wipeoff": n if k1 else 0,
+                                        "wipeoff_vpu": 0 if k1 else n,
+                                        "cheap": n} or not n:
+                    raise AssertionError(f"[{tag}] launches "
+                                         f"{card['launches']}, K-steps {n}")
+            log(f"[{tag}]: ended after epoch {card['epochs']} (block "
+                f"{card['blocks']}) as on the CPU; {json.dumps(card)}")
+            out[(path, script)] = card
+            for name, v in card["launches"].items():
+                launches[name] = launches.get(name, 0) + v
+    return dict(runs=out, launches=launches)
+
+
+def run_warm_start(cfg, scn, blocks, dev) -> dict:
+    """15e: phase 4's capture (as phase 10 packs it) replayed cold through
+    the CLI with --ephem-cache, which writes the decoded ephemerides,
+    then warm from that cache: the warm run's first fix at least one
+    epoch earlier, at least as many fixes, the scenario's PRNs in the
+    cache; kernel 1 and cheap once a K-step of each run.  The cache
+    backdated past 2 h loads empty and preloads no Session (the CPU's
+    rule, tests/test_torch_parity_session.py)."""
+    import tempfile
+
+    from gps_sdr_tpu_torch.kernel_profile import HOST_SCALE
+    from gps_sdr_tpu_torch.runtime import _native
+    from gps_sdr_tpu_torch.runtime.session import Session
+    from gps_sdr_tpu_torch.utils import io
+
+    truth = sorted(s.prn for s in scn.sats)
+    steps = _want_steps(cfg, len(blocks))
+    epoch_s = cfg.no_sec * cfg.block_sec
+    res, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cap, cache = (os.path.join(tmp, n) for n in ("cap.bin", "eph.json"))
+        _native.pack_iq(HOST_SCALE * blocks).tofile(cap)
+        for run in ("cold", "warm"):
+            prefix = os.path.join(tmp, run)
+            _reset_launches()
+            rc, out = cli_run(["replay", cap, "--device", str(dev), "--ui",
+                               "none", "--out", prefix, "--ephem-cache",
+                               cache])
+            got = _read_launches()
+            _check_card_launches(f"15e {run}", got, steps, dev)
+            if rc != 0 or printed_prns(out) != truth:
+                raise AssertionError(f"[15e] {run} replay rc {rc}")
+            pos = _positions(prefix)
+            res[run] = dict(fixes=len(pos), first_fix_t=float(pos[0, 0]),
+                            cached=sorted(io.load_ephemerides(cache)))
+            for name, v in got.items():
+                launches[name] = launches.get(name, 0) + v
+        earlier = (res["cold"]["first_fix_t"] - res["warm"]["first_fix_t"]) \
+            / epoch_s
+        if not (res["cold"]["cached"] == truth and earlier >= 1.0
+                and res["warm"]["fixes"] >= res["cold"]["fixes"]):
+            raise AssertionError(f"[15e] warm start: {res}, first fix "
+                                 f"{earlier:.2f} epochs earlier")
+        with open(cache) as f:
+            doc = json.load(f)
+        doc["POSIX-Time"] = int(time.time()) - 2 * 3600 - 60
+        aged = os.path.join(tmp, "aged.json")
+        with open(aged, "w") as f:
+            json.dump(doc, f)
+        refused = Session(cfg, device=dev, ephem_cache_path=aged)
+        if io.load_ephemerides(aged) != {} or \
+                refused.evaluator.preloaded_ephem != {}:
+            raise AssertionError("[15e] a cache older than 2 h was taken")
+    log(f"[15e] cold {json.dumps(res['cold'])}; warm from the cache "
+        f"{json.dumps(res['warm'])}: first fix {earlier:.2f} epochs "
+        f"earlier; the cache aged 2 h 1 min refused; launches {launches}")
+    return dict(res, epochs_earlier=earlier, launches=launches)
+
+
+def run_parity(cfg, scn, blocks, dev) -> dict:
+    """Phase 15: 15a-15e, each one's seconds logged; the launches of each
+    sub-phase."""
+    t0 = time.perf_counter()
+    out = {}
+    for key, tag, run in (
+            ("edge_chain", "15a", lambda: run_edge_chain(cfg, dev)),
+            ("pull_in", "15b", lambda: run_pull_in(cfg, scn, blocks, dev)),
+            ("tail", "15c", lambda: run_tail(cfg, scn, blocks, dev)),
+            ("session", "15d", lambda: run_session_controls(cfg, scn,
+                                                            blocks, dev)),
+            ("warm_start", "15e", lambda: run_warm_start(cfg, scn, blocks,
+                                                         dev))):
+        t1 = time.perf_counter()
+        out[key] = run()
+        log(f"[{tag}] took {time.perf_counter() - t1:.1f} s")
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[15] phase 15 took {out['wall_s']:.1f} s")
+    return out
+
+
+def parity_launches(par: dict, name: str) -> dict:
+    """Each phase-15 sub-phase's launches of kernel `name`."""
+    return {key: par[key]["launches"][name] for key in (
+        "edge_chain", "pull_in", "tail", "session", "warm_start")}
+
+
+# --------------------------------------------------------------------------
 
 
 def _kernel_entry(name, source, replaces, launches, res) -> dict:
@@ -4673,6 +5350,9 @@ def main() -> int:
     # 14. the examples slice: synthetic_fix and the analysis notebook
     ex = run_examples(cfg, sl, blocks, dev)
 
+    # 15. the parity slice: the card half of the JAX tests' twins
+    par = run_parity(cfg, scn, blocks, dev)
+
     kernels = [
         _kernel_entry("wipeoff", "wipeoff.cu",
                       "gps_sdr_tpu/ops/pallas_kernels.py:171",
@@ -4742,6 +5422,7 @@ def main() -> int:
     for entry in kernels:
         entry["launches_envelope"] = envelope_launches(env, entry["name"])
         entry["launches_examples"] = examples_launches(ex, entry["name"])
+        entry["launches_parity"] = parity_launches(par, entry["name"])
     log(f"[end] chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -4,7 +4,11 @@
 bytes go through the JAX Session and the port's Session on the CPU
 (tests/torch_envelope.py's comparisons, the Doppler velocity series
 included), and the JAX test's track and velocity bars are applied to
-the port's run."""
+the port's run.  tests/test_trackfilter.py's three capture cases are
+twinned on the port's recorded epochs (test_track_filter_*)."""
+
+import copy
+import dataclasses
 
 import numpy as np
 import pytest
@@ -15,6 +19,7 @@ from gps_sdr_tpu_torch.config import ReceiverConfig
 from gps_sdr_tpu_torch.models.scenario import make_scenario
 from gps_sdr_tpu_torch.utils.gpstime import gps_datetime
 from tests import torch_envelope as env
+from tests.test_trackfilter import _err_vs_truth
 
 torch.set_num_threads(2)
 
@@ -65,3 +70,96 @@ def test_doppler_velocity_series(runs):
     v = np.array([row[1:] for row in ev.velocities], np.float64)
     assert np.linalg.norm(np.median(v, axis=0) - scn.rec_vel) < 0.5
     assert abs(ev.vel_result.clock_drift) < 2e-8
+
+
+def _filter_runs(ts, cfg_kw, strip_freqs=False, edit=None):
+    """The port's recorded epochs (its Session on this capture) through
+    the JAX Evaluator and the port's at CFG.replace(**cfg_kw), numpy host
+    paths; edit(i, epoch, evaluator module, evaluator) may change epoch
+    i.  The two evaluators' fixes,
+    filtered track and coasted predictions must be equal; returns both."""
+    from gps_sdr_tpu.config import ReceiverConfig as JaxConfig
+    from gps_sdr_tpu.runtime import evaluator as jev
+    from gps_sdr_tpu_torch.runtime import evaluator as tev
+    from tests.torch_parity import same
+
+    out = []
+    with pytest.MonkeyPatch.context() as m:
+        m.setenv("GSDR_EVALCORE", "0")
+        m.setenv("GSDR_NAVSCAN", "0")
+        for ev_mod, cfg_cls in ((jev, JaxConfig), (tev, ReceiverConfig)):
+            cfg = cfg_cls(**{**dataclasses.asdict(CFG), **cfg_kw})
+            ev = ev_mod.Evaluator(cfg)
+            sums = []
+            for i, rec in enumerate(ts.records):
+                rec = copy.deepcopy(rec)
+                e = ev_mod.EpochInput(*(rec[:3] if strip_freqs else rec))
+                sums.append(ev.process(edit(i, e, ev_mod, ev) if edit else e))
+            out.append((ev, sums))
+    for name in ("positions", "filtered", "coasted", "velocities"):
+        same(getattr(out[1][0], name), getattr(out[0][0], name), name)
+    same(out[1][1], out[0][1], "summaries")
+    return out
+
+
+def _rms(e):
+    return float(np.sqrt(np.mean(np.sum(e ** 2, axis=1))))
+
+
+def test_track_filter_raw_fixes(runs):
+    """test_moving_capture_filtered_track: raw fixes (no smoothing, so no
+    carrier frequencies) and the track filter at q 1: both packages'
+    filtered tracks equal, each cutting the truth-relative RMS by > 2x,
+    under 8 m, ending within 0.5 m/s of the true velocity."""
+    scn, _, ts = runs
+    for ev, _ in _filter_runs(ts, {"carrier_smoothing": 0,
+                                   "track_filter_q": 1.0}, strip_freqs=True):
+        assert len(ev.filtered) >= 0.9 * len(ev.positions)
+        raw = _rms(_err_vs_truth(ev.positions, scn, 64))
+        filt = _rms(_err_vs_truth(ev.filtered, scn, 64))
+        assert filt < 0.5 * raw and filt < 8.0, (filt, raw)
+        assert np.linalg.norm(np.array(ev.filtered[-1][4:])
+                              - scn.rec_vel) < 0.5
+
+
+def test_track_filter_coasts_through_an_outage(runs):
+    """test_outage_coasting_bridges_gap: the two epochs three after the
+    first fix starved to 2 satellites; both packages coast alike, with
+    at least two predictions in the outage, each within 25 m of the
+    trajectory, and fixes resume."""
+    scn, _, ts = runs
+    first = next(i for i, s in enumerate(
+        _filter_runs(ts, {"track_filter_q": 1.0})[1][1]) if s["n_fixes"])
+    n_before = {}
+
+    def starve(i, e, ev_mod, ev):
+        if i == first + 3:
+            n_before[ev_mod.__name__] = len(ev.coasted)
+        if first + 3 <= i <= first + 4:
+            keep = sorted(e.code_phases)[:2]
+            e = ev_mod.EpochInput(
+                e.skipped_samples, e.frames,
+                {s: e.code_phases[s] for s in keep},
+                {s: e.carrier_freqs[s] for s in keep
+                 if s in e.carrier_freqs} if e.carrier_freqs else None)
+        return e
+    t0 = gps_datetime(scn.tow0, scn.week).timestamp() + 0.25
+    for ev, _ in _filter_runs(ts, {"track_filter_q": 1.0}, edit=starve):
+        n0 = n_before[type(ev).__module__]
+        assert len(ev.coasted) >= n0 + 2, "no coasted predictions"
+        for row in ev.coasted[n0:]:
+            truth = scn.rec_ecef + (row[0] - t0) * scn.rec_vel
+            assert np.linalg.norm(np.array(row[1:4]) - truth) < 25.0
+        assert len(ev.filtered) > 0 and ev.positions
+
+
+def test_track_filter_with_carrier_smoothing(runs):
+    """test_filter_with_carrier_smoothing_stays_healthy: smoothing 64 and
+    the filter at q 1; both packages alike, the gate not starving and
+    the filtered tail no worse than 1.1x the raw fixes."""
+    scn, _, ts = runs
+    for ev, _ in _filter_runs(ts, {"track_filter_q": 1.0}):
+        assert len(ev.filtered) >= 0.9 * len(ev.positions)
+        skip = max(len(ev.filtered) - 450, 64)
+        assert _rms(_err_vs_truth(ev.filtered, scn, skip)) <= \
+            1.1 * _rms(_err_vs_truth(ev.positions, scn, skip))

@@ -5,8 +5,12 @@ replayed with RAIM on (carrier_smoothing 64) and off (carrier smoothing
 only), each through the JAX Session and the port's Session on the CPU
 (tests/torch_envelope.py's comparisons: the same RAIM events, PRN and
 epoch exact, statistics rtol 1e-4), and the JAX test's three bars are
-applied to the port's runs."""
+applied to the port's runs.  test_aux_units.py's DOP check is twinned
+on the port's recorded epochs (test_dop_matches_jax)."""
 
+import copy
+
+import numpy as np
 import pytest
 import torch
 
@@ -71,3 +75,31 @@ def test_raim_repairs_the_fix(runs):
     err = env.fix_error(runs["raim"][1].evaluator, truth)
     assert err < 6.0
     assert err < 0.2 * env.fix_error(runs["off"][1].evaluator, truth)
+
+
+def test_dop_matches_jax(runs):
+    """tests/test_aux_units.py::test_dop_reported_and_matches_geometry on
+    this capture at ReceiverConfig(): the port's recorded epochs (its
+    RAIM-off run; carrier frequencies dropped, as a receiver without
+    smoothing ships none) through the JAX Evaluator and the port's, the
+    numpy host paths of both: the same fixes and DOP exactly, and the
+    JAX test's geometry bars on both."""
+    from gps_sdr_tpu.config import ReceiverConfig as JaxConfig
+    from gps_sdr_tpu.runtime import evaluator as jev
+    from gps_sdr_tpu_torch.runtime import evaluator as tev
+    from tests.torch_parity import same
+
+    with pytest.MonkeyPatch.context() as m:
+        m.setenv("GSDR_EVALCORE", "0")
+        m.setenv("GSDR_NAVSCAN", "0")
+        out = []
+        for ev_mod, cfg in ((jev, JaxConfig()), (tev, ReceiverConfig())):
+            ev = ev_mod.Evaluator(cfg)
+            sums = [ev.process(ev_mod.EpochInput(*copy.deepcopy(r[:3])))
+                    for r in runs["off"][1].records]
+            g, p, h, v = ev.dop
+            assert 1.0 < g < 10.0 and p < g
+            assert np.isclose(np.hypot(h, v), p, rtol=1e-9)
+            assert sums[-1]["dop"] == ev.dop
+            out.append((ev.dop, ev.positions, sums))
+    same(out[1], out[0])
