@@ -269,12 +269,33 @@ Phases (any failure raises and the script exits non-zero):
      e. phase 4's capture replayed cold with --ephem-cache, then warm
         from the written cache: the first fix >= 1 epoch earlier, >= as
         many fixes; a cache aged past 2 h refused.
+ 16. the tools slice, the analysis tools of gps_sdr_tpu_torch/examples
+     at their smallest sizes that reach a steady state and a fix, each
+     run with the launch counters set to 0 just before it:
+     a. roofline.run at K=16 with 12 channels on 512 blocks, through
+        kernel 1 and then kernel 2 (with cheap): every stage bucket
+        present, each kernel launched blocks / K times and every launch
+        in the trace (roofline.check_complete), every share <= 1.0 and
+        the busy µs a block at or above work_per_block's floor;
+     b. probe_device_loop.probe at its defaults (40 s of the phase-4
+        scenario on the card; at 24 s no fix has come yet): the phase
+        split, the scenario's PRNs, >= 4 ephemerides, the mean fix
+        within 8 m, one launch of kernel 1 and cheap a K-step;
+     c. the host profilers, each on 40 s of its scenario (the first fix
+        comes ~25 s in): profile_fullloop's run_device, profile_serving's
+        8 streams, profile_evalhost's capture of 4 streams and its host
+        cap; the same fix checks for every receiver and stream, the
+        same launches, and each profile's top host functions;
+     d. scaling_sweep.sweep_rows at 1/2/4 time shards on a mesh of
+        cuda:0 repeated (4 channels, 32 blocks): the work factors, the
+        exact stitch equal to the sequential scan as 11b holds it, and
+        no kernel launched (the K=1 scan).
 The line before the last holds the kernels' launches (launches_bench: a
 count for each of the bench's extras; launches_envelope: one for each
 phase-13 run; launches_examples: one for each phase-14 run in this
-process; launches_parity: one for each phase-15 sub-phase), errors,
-times and bounds as JSON; the last line is
-{"ok": true, "device": {...}}.
+process; launches_parity: one for each phase-15 sub-phase;
+launches_tools: one for each phase-16 run), errors, times and bounds as
+JSON; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -297,10 +318,6 @@ EXAMPLE_FLAG_SETS = (("--osc-ppm", "2", "--osc-ppm-rate", "1.65e-3"),
                      ("--moving", "13,0", "--track-filter", "1"),
                      ("--fault-us", "1"),
                      ("--carrier-smoothing", "50"))
-# one NVIDIA H100 SXM at its 700 W limit (data sheet): device memory
-# rate and the f32 rate outside the tensor cores
-H100_BYTES_PER_S = 3.35e12
-H100_F32_PER_S = 67e12
 
 
 def log(msg: str) -> None:
@@ -382,7 +399,11 @@ def time_ms(fn, reps: int = 20) -> float:
 
 def _bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     """(least ms on one H100, what sets it): the larger of the bytes
-    over the memory rate and the f32 operations over the f32 rate."""
+    over the memory rate and the f32 operations over the f32 rate (the
+    peaks of the whole-step roofline, examples/roofline.py)."""
+    from gps_sdr_tpu_torch.examples.roofline import (H100_BYTES_PER_S,
+                                                     H100_F32_PER_S)
+
     t_bytes = n_bytes / H100_BYTES_PER_S
     t_ops = n_ops / H100_F32_PER_S
     return (max(t_bytes, t_ops) * 1e3,
@@ -2295,11 +2316,14 @@ def _want_steps(cfg, n_blocks: int) -> int:
     return (tracked // t) * (t // k) + (tracked % t) // k
 
 
-def _check_launches(tag, launches, steps) -> None:
-    if not (launches["wipeoff"] == launches["cheap"] == steps
-            and launches["wipeoff_vpu"] == 0):
+def _check_launches(tag, launches, steps, name="wipeoff") -> None:
+    """One launch of wipeoff kernel `name` and of cheap a K-step, none of
+    the other wipeoff kernel."""
+    other = "wipeoff_vpu" if name == "wipeoff" else "wipeoff"
+    if not (launches[name] == launches["cheap"] == steps
+            and launches[other] == 0):
         raise AssertionError(f"[{tag}] kernel launches {launches} != "
-                             f"K-steps {steps}, or kernel 2 launched")
+                             f"K-steps {steps}, or {other} launched")
 
 
 def run_host_slice(cfg, scn, blocks, device: str = "cuda",
@@ -5195,6 +5219,254 @@ def parity_launches(par: dict, name: str) -> dict:
 
 
 # --------------------------------------------------------------------------
+# the tools slice (phase 16): gps_sdr_tpu_torch/examples' analysis tools
+
+ROOF_K, ROOF_BLOCKS, ROOF_CHANNELS = 16, 512, 12
+# the scenarios' first fixes come ~25 s in; at profile_evalhost's 32 s
+# the mean of seed 5's first fixes is 9.55 m from the truth (on the CPU)
+TOOLS_SEC = 40.0
+EVALHOST_STREAMS = 4
+SERVING_STREAMS = 8
+SWEEP_BLOCKS, SWEEP_SHARDS, SWEEP_MESH = 32, (1, 2, 4), 4
+
+
+def _top_functions(stats, n: int = 8) -> str:
+    """The n host functions of a cProfile run with the most time of
+    their own: "name (file:line) own s / cumulative s", one a line."""
+    rows = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:n]
+    return "\n".join(
+        f"      {fn} ({os.path.basename(path)}:{line}) {tt:.3f} s own / "
+        f"{ct:.3f} s cumulative, {nc} calls"
+        for (path, line, fn), (_, nc, tt, ct, _) in rows)
+
+
+def _run_steps(cfg, n_chunks: int) -> int:
+    """K-steps of a device loop over n_chunks whole chunks (run_device,
+    StreamServer: every block of every chunk is tracked)."""
+    return n_chunks * (cfg.no_sec // cfg.blocks_per_step)
+
+
+def run_roofline_phase(dev, blocks: int = ROOF_BLOCKS) -> dict:
+    """16a: roofline.run through kernel 1 and through kernel 2; the
+    report of each, by kernel name."""
+    from gps_sdr_tpu_torch.examples import roofline
+
+    on_card = torch_device_type(dev) == "cuda"
+    steps = blocks // ROOF_K
+    out = {}
+    for name, mxu in (("wipeoff", True), ("wipeoff_vpu", False)):
+        doc = roofline.run(ROOF_K, blocks, ROOF_CHANNELS, dev,
+                           use_mxu_wipeoff=mxu)
+        bk = doc["buckets"]
+        log(f"[16a] {name} + cheap, K={ROOF_K}, {ROOF_CHANNELS} channels, "
+            f"{blocks} blocks ({doc['lane']}): busy "
+            f"{doc['busy_us_per_block']:.4f} µs a block of "
+            f"{doc['wall_us_per_block']:.4f} µs wall "
+            f"({100 * doc['busy_share_of_wall']:.1f}% busy); floor "
+            f"{doc['floor_us_per_block']:.4f} µs ({doc['bound_by']}), "
+            f"{doc['bytes_per_block']} B and {doc['flops_per_block']} flops "
+            f"a block (JAX count {doc['flops_per_block_jax_count']}); "
+            f"shares {json.dumps(doc['shares'])}; launches "
+            f"{doc['launches']}")
+        for b, v in bk.items():
+            top = [(t["name"][:60], round(t["us_per_block"], 4))
+                   for t in v["top"][:2]]
+            log(f"[16a]   {b:11s} {v['us_per_block']:.4f} µs a block, "
+                f"{v['launches_per_k_step']:.2f} a K-step, "
+                f"{100 * v['share_of_busy']:.1f}% of busy; top {top}")
+        if on_card:
+            _check_launches(f"16a {name}", doc["launches"], steps, name)
+            # roofline.run raised if its trace missed a kernel launch
+            missing = [b for b, v in bk.items() if v["launches"] == 0]
+            if missing or doc["lane"] != "device":
+                raise AssertionError(f"[16a] buckets without an event: "
+                                     f"{missing} (lane {doc['lane']})")
+            if not doc["busy_us_per_block"] >= doc["floor_us_per_block"]:
+                raise AssertionError("[16a] busy time under the floor")
+        out[name] = doc
+    return out
+
+
+def run_probe_phase(dev, sec: float = TOOLS_SEC) -> dict:
+    """16b: probe_device_loop at its defaults but --sec: the phase split,
+    the fix checks, the launches."""
+    from gps_sdr_tpu_torch import ReceiverConfig
+    from gps_sdr_tpu_torch.examples import probe_device_loop as probe
+
+    cfg = ReceiverConfig(chunks_per_download=8)
+    scn, provider, n = probe.scenario_provider(cfg, sec, N_SATS, False, dev)
+    _reset_launches()
+    res = probe.probe(cfg, provider, n, 8, dev)
+    launches = _read_launches()
+    for line in probe.report(res).splitlines():
+        log(f"[16b] {line}")
+    err = _check_fix("16b", scn, res["receiver"],
+                     _ev_summary(res["evaluator"]))
+    _check_card_launches("16b", launches, _run_steps(cfg, n), dev)
+    return dict(launches=launches, err_m=err, times=res["times"],
+                wall_s=res["wall_s"], signal_s=res["signal_s"])
+
+
+def run_profilers(dev, sec: float = TOOLS_SEC) -> dict:
+    """16c: profile_fullloop, profile_serving and profile_evalhost on sec
+    seconds of their scenarios; each one's rate, fixes, launches and top
+    host functions."""
+    import numpy as np
+    import torch
+    from gps_sdr_tpu_torch import ReceiverConfig
+    from gps_sdr_tpu_torch.bench import scenario_buffer
+    from gps_sdr_tpu_torch.examples import (profile_evalhost,
+                                            profile_fullloop,
+                                            profile_serving)
+
+    dev = torch.device(dev)
+    out = {}
+    cfg = ReceiverConfig().replace(download_windows_in_flight=2)
+    scn, buf, n = scenario_buffer(cfg, 3, sec, dev)
+    _reset_launches()
+    res = profile_fullloop.profile_fullloop(
+        cfg, lambda first, m: buf[first:first + m], n, dev)
+    launches = _read_launches()
+    err = _check_fix("16c fullloop", scn, res["receiver"],
+                     _ev_summary(res["evaluator"]))
+    _check_card_launches("16c fullloop", launches, _run_steps(cfg, n), dev)
+    log(f"[16c] fullloop: {res['chunks']} steady chunks, "
+        f"{res['signal_s']:.1f} s in {res['wall_s']:.3f} s = "
+        f"{res['rtf']:.2f}x realtime under cProfile "
+        f"({1e3 * res['wall_s'] / res['chunks']:.2f} ms a chunk); "
+        f"{len(res['evaluator'].positions)} fixes; launches {launches}; "
+        f"top host functions:\n{_top_functions(res['stats'])}")
+    out["fullloop"] = dict(launches=launches, err_m=err, rtf=res["rtf"])
+    del buf
+
+    cfg = profile_serving.serving_config(ReceiverConfig(), 2)
+    scn, buf, n = scenario_buffer(cfg, 5, sec, dev)
+    _reset_launches()
+    res = profile_serving.profile_serving(
+        cfg, lambda first, m: buf[first:first + m], n, SERVING_STREAMS,
+        dev)
+    launches = _read_launches()
+    errs = [_check_fix(f"16c serving stream {s}", scn, rx, _ev_summary(ev))
+            for s, (rx, ev) in enumerate(zip(res["server"].receivers,
+                                             res["evaluators"]))]
+    _check_card_launches("16c serving", launches, _run_steps(cfg, n), dev)
+    log(f"[16c] serving: {SERVING_STREAMS} streams x {res['signal_s']:.1f} "
+        f"s in {res['wall_s']:.3f} s = {res['rtf']:.2f}x aggregate under "
+        f"cProfile; fixes "
+        f"{[len(ev.positions) for ev in res['evaluators']]}; launches "
+        f"{launches}; top host functions:\n{_top_functions(res['stats'])}")
+    out["serving"] = dict(launches=launches, err_m=max(errs), rtf=res["rtf"])
+    del buf
+
+    cfg = ReceiverConfig()
+    n = int(round(sec / (cfg.no_sec * cfg.block_sec)))
+    cfg_sv = profile_evalhost.serving_config(cfg, n)
+    scn, buf, n = scenario_buffer(cfg, 5, sec, dev)
+    _reset_launches()
+    pairs = profile_evalhost.capture(cfg_sv, lambda first, m:
+                                     buf[first:first + m], n,
+                                     EVALHOST_STREAMS, dev)
+    launches = _read_launches()
+    del buf
+    _check_card_launches("16c evalhost capture", launches,
+                         _run_steps(cfg_sv, n), dev)
+    evs = profile_evalhost.replay(cfg_sv, pairs, EVALHOST_STREAMS)
+    errs = []
+    for s, ev in enumerate(evs):
+        stat = ev.stat
+        errs.append(float(np.linalg.norm(stat[0] - scn.rec_ecef))
+                    if stat is not None else float("nan"))
+        if not errs[-1] < 8.0:
+            raise AssertionError(f"[16c] evalhost stream {s}: mean fix "
+                                 f"{errs[-1]:.2f} m from truth (> 8 m)")
+    cap = profile_evalhost.host_cap(cfg_sv, pairs, EVALHOST_STREAMS, sec, 3)
+    log(f"[16c] evalhost: {len(pairs)} epochs of {EVALHOST_STREAMS} streams "
+        f"x {sec:.0f} s, {cap['fixes']} fixes, mean errors "
+        f"{[round(e, 3) for e in errs]} m; replay {cap['wall_s']:.4f} s => "
+        f"host cap {cap['host_cap']:.1f}x aggregate realtime; capture "
+        f"launches {launches}; top host functions:\n"
+        f"{_top_functions(cap['stats'])}")
+    out["evalhost_capture"] = dict(launches=launches, err_m=max(errs),
+                                   host_cap=cap["host_cap"])
+    return out
+
+
+def run_sweep_phase(cfg, dev, n_blocks: int = SWEEP_BLOCKS) -> dict:
+    """16d: scaling_sweep.sweep_rows at SWEEP_SHARDS on a mesh of dev
+    repeated: each row logged, the exact rows held to the sequential
+    scan as 11b holds it."""
+    import numpy as np
+    from gps_sdr_tpu_torch.examples import scaling_sweep
+
+    case = scaling_sweep.stream_case(cfg, 4, n_blocks, dev)
+    _reset_launches()
+    res = scaling_sweep.sweep_rows(cfg, case, [dev] * SWEEP_MESH,
+                                   SWEEP_SHARDS, warmup=4, reps=1)
+    launches = _read_launches()
+    ref_final, ref = res["reference"]
+    for row in res["rows"]:
+        log(f"[16d] {json.dumps(row)}")
+        n_sh, mode = row["time_shards"], row["mode"]
+        local = n_blocks // n_sh
+        if row["work_scans_per_device"] != round(scaling_sweep.work_scans(
+                n_sh, mode, 4, local), 3):
+            raise AssertionError(f"[16d] work factor of {row}")
+        if mode != "exact_rescan":
+            continue
+        final, got = res["tracked"][n_sh, mode]
+        for name, atol in (("code_phase", 1e-4), ("freq", 1e-3)):
+            np.testing.assert_allclose(getattr(got, name).cpu().numpy(),
+                                       getattr(ref, name).cpu().numpy(),
+                                       atol=atol, err_msg=name)
+        for name in ("locked", "edge_valid"):
+            if not np.array_equal(getattr(got, name).cpu().numpy(),
+                                  getattr(ref, name).cpu().numpy()):
+                raise AssertionError(f"[16d] exact stitch at {n_sh} shards: "
+                                     f"{name} differs from the sequential "
+                                     "scan")
+        for name in ("freq", "phase"):
+            np.testing.assert_allclose(
+                getattr(final, name).cpu().numpy(),
+                getattr(ref_final, name).cpu().numpy(), atol=1e-3,
+                err_msg=f"final {name}")
+    if any(launches.values()):
+        raise AssertionError(f"[16d] the K=1 scan launched {launches}")
+    log(f"[16d] exact stitch = the sequential scan at {SWEEP_SHARDS} shards; "
+        f"launches {launches}")
+    return dict(launches=launches, rows=res["rows"])
+
+
+def run_tools(cfg, dev) -> dict:
+    """Phase 16: 16a-16d, each one's seconds logged."""
+    t0 = time.perf_counter()
+    out = {}
+    for key, tag, run in (
+            ("roofline", "16a", lambda: run_roofline_phase(dev)),
+            ("probe", "16b", lambda: run_probe_phase(dev)),
+            ("profilers", "16c", lambda: run_profilers(dev)),
+            ("sweep", "16d", lambda: run_sweep_phase(cfg, dev))):
+        t1 = time.perf_counter()
+        out[key] = run()
+        log(f"[{tag}] took {time.perf_counter() - t1:.1f} s")
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[16] phase 16 took {out['wall_s']:.1f} s")
+    return out
+
+
+def tools_launches(tl: dict, name: str) -> dict:
+    """Each phase-16 run's launches of kernel `name`."""
+    prof = tl["profilers"]
+    return {"roofline_kernel1": tl["roofline"]["wipeoff"]["launches"][name],
+            "roofline_kernel2":
+                tl["roofline"]["wipeoff_vpu"]["launches"][name],
+            "probe": tl["probe"]["launches"][name],
+            "fullloop": prof["fullloop"]["launches"][name],
+            "serving": prof["serving"]["launches"][name],
+            "evalhost_capture": prof["evalhost_capture"]["launches"][name],
+            "scaling_sweep": tl["sweep"]["launches"][name]}
+
+
+# --------------------------------------------------------------------------
 
 
 def _kernel_entry(name, source, replaces, launches, res) -> dict:
@@ -5353,6 +5625,9 @@ def main() -> int:
     # 15. the parity slice: the card half of the JAX tests' twins
     par = run_parity(cfg, scn, blocks, dev)
 
+    # 16. the tools slice: the analysis tools of the examples
+    tl = run_tools(cfg, dev)
+
     kernels = [
         _kernel_entry("wipeoff", "wipeoff.cu",
                       "gps_sdr_tpu/ops/pallas_kernels.py:171",
@@ -5423,6 +5698,7 @@ def main() -> int:
         entry["launches_envelope"] = envelope_launches(env, entry["name"])
         entry["launches_examples"] = examples_launches(ex, entry["name"])
         entry["launches_parity"] = parity_launches(par, entry["name"])
+        entry["launches_tools"] = tools_launches(tl, entry["name"])
     log(f"[end] chip_smoke took {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

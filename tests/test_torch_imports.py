@@ -41,7 +41,10 @@ def test_every_module_imports_without_jax():
               "utils.profiling", "cli", "parallel", "parallel.mesh",
               "parallel.acquisition", "parallel.tracking", "bench",
               "examples.soak", "examples.endurance",
-              "examples.synthetic_fix", "examples.analysis"):
+              "examples.synthetic_fix", "examples.analysis",
+              "examples.roofline", "examples.probe_device_loop",
+              "examples.profile_evalhost", "examples.profile_fullloop",
+              "examples.profile_serving", "examples.scaling_sweep"):
         assert f"gps_sdr_tpu_torch.{m}" in mods
     assert "gps_sdr_tpu_torch.host" not in mods
     code = ("import importlib, sys\n"
@@ -97,11 +100,22 @@ def test_port_loads_nothing_of_the_jax_package_nor_optional_packages():
                                     "gps_sdr_tpu_torch.examples.soak",
                                     "gps_sdr_tpu_torch.examples.endurance",
                                     "gps_sdr_tpu_torch.examples.synthetic_fix",
-                                    "gps_sdr_tpu_torch.examples.analysis"])
+                                    "gps_sdr_tpu_torch.examples.analysis",
+                                    "gps_sdr_tpu_torch.examples.roofline",
+                                    "gps_sdr_tpu_torch.examples."
+                                    "probe_device_loop",
+                                    "gps_sdr_tpu_torch.examples."
+                                    "profile_evalhost",
+                                    "gps_sdr_tpu_torch.examples."
+                                    "profile_fullloop",
+                                    "gps_sdr_tpu_torch.examples."
+                                    "profile_serving",
+                                    "gps_sdr_tpu_torch.examples."
+                                    "scaling_sweep"])
 def test_sharding_and_profiling_import_without_jax(module):
-    """The sharding slice, the profiler, the bench and the long-run
-    tools, each imported alone in a fresh interpreter, load no module of
-    jax or gps_sdr_tpu."""
+    """The sharding slice, the profiler, the bench, the long-run tools
+    and the analysis tools, each imported alone in a fresh interpreter,
+    load no module of jax or gps_sdr_tpu."""
     code = ("import importlib, sys\n"
             f"importlib.import_module({module!r})\n"
             "bad = sorted(m for m in sys.modules\n"
