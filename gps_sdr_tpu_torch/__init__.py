@@ -38,8 +38,11 @@ noted:
                                sharded acquisition (acquisition.py) and
                                time/channel-sharded tracking with exact
                                or state-handoff stitching (tracking.py)
-  utils/profiling.py           RateMeter; trace() over torch.profiler
-                               and the trace's device time and per-op
+  utils/profiling.py           span() and count(): the program's
+                               stage timings and counters, in the
+                               profiler's trace while one runs;
+                               trace() over torch.profiler and the
+                               trace's device time and per-op
                                breakdown
   runtime/transport.py         the two-process topology's UDP wire
                                (the JAX package's pickle format)

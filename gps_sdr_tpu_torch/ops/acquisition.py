@@ -20,6 +20,7 @@ from gps_sdr_tpu_torch.config import ReceiverConfig
 from gps_sdr_tpu_torch.device import resolve_device
 from gps_sdr_tpu_torch.ops import dsp
 from gps_sdr_tpu_torch.ops.frontend import excise_cw_block
+from gps_sdr_tpu_torch.utils.profiling import span
 
 
 class AcqResult(NamedTuple):
@@ -83,23 +84,24 @@ def acquire_all(cfg: ReceiverConfig, block, code_fft_table: np.ndarray,
     config's search bins (almanac warm start).  With cfg.cw_excision > 0
     the block's narrowband interference is nulled before the grid
     search, as the tracking chunks' is; acquire_impl does not excise."""
-    dev = resolve_device(device)
-    prns = list(cfg.prns if prns is None else prns)
-    if dopplers is None:
-        dopplers = cfg.doppler_bins
-    blk = torch.as_tensor(np.asarray(block, np.complex64), device=dev)
-    if cfg.cw_excision > 0:
-        blk = excise_cw_block(blk, cfg.cw_excision)
-    ffts = torch.as_tensor(
-        np.asarray(code_fft_table[np.asarray(prns)], np.complex64),
-        device=dev)
-    res = acquire_impl(cfg, blk,
-                       torch.as_tensor(np.asarray(dopplers, np.float32),
-                                       device=dev), ffts)
-    found = res.found.cpu().numpy()
-    norm = res.norm_max.cpu().numpy()
-    freq = res.freq.cpu().numpy()
-    delay = res.delay.cpu().numpy()
-    out = [(float(norm[i]), prns[i], float(freq[i]), int(delay[i]))
-           for i in range(len(prns)) if found[i]]
+    with span("acq.sweep"):
+        dev = resolve_device(device)
+        prns = list(cfg.prns if prns is None else prns)
+        if dopplers is None:
+            dopplers = cfg.doppler_bins
+        blk = torch.as_tensor(np.asarray(block, np.complex64), device=dev)
+        if cfg.cw_excision > 0:
+            blk = excise_cw_block(blk, cfg.cw_excision)
+        ffts = torch.as_tensor(
+            np.asarray(code_fft_table[np.asarray(prns)], np.complex64),
+            device=dev)
+        res = acquire_impl(cfg, blk,
+                           torch.as_tensor(np.asarray(dopplers, np.float32),
+                                           device=dev), ffts)
+        found = res.found.cpu().numpy()
+        norm = res.norm_max.cpu().numpy()
+        freq = res.freq.cpu().numpy()
+        delay = res.delay.cpu().numpy()
+        out = [(float(norm[i]), prns[i], float(freq[i]), int(delay[i]))
+               for i in range(len(prns)) if found[i]]
     return sorted(out, reverse=True)

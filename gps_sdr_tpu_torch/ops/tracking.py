@@ -53,6 +53,7 @@ from gps_sdr_tpu_torch.config import ReceiverConfig
 from gps_sdr_tpu_torch.device import resolve_device
 from gps_sdr_tpu_torch.ops import (corr, dsp, frontend, hopper_cheap,
                                    hopper_wipeoff)
+from gps_sdr_tpu_torch.utils.profiling import span
 
 TWO_PI = 2.0 * math.pi
 
@@ -468,8 +469,9 @@ def track_chunk_impl(cfg: ReceiverConfig, states: ChannelState,
     blocks = dsp.as_complex_input(blocks)
     outs = []
     for i in range(blocks.shape[0]):
-        states, out = channel_step(cfg, states, blocks[i], stream_no0 + i,
-                                   codes, code_ffts)
+        with span("track.block"):
+            states, out = channel_step(cfg, states, blocks[i],
+                                       stream_no0 + i, codes, code_ffts)
         outs.append(out)
     return states, _stack_outs(outs)
 
@@ -659,10 +661,12 @@ def _fused_steps(cfg: ReceiverConfig, states: ChannelState,
     spec = corr.prep_spec(code_ffts)
     outs = []
     for step in range(t // k):
-        heavy = heavy_stage(cfg, k, states, blocks, step, codes, code_ffts,
-                            corr_spec=spec, n_streams=n_streams)
-        states, out = channel_step_k(cfg, k, states, heavy,
-                                     stream_no0 + k * step)
+        with span("track.kstep"):
+            heavy = heavy_stage(cfg, k, states, blocks, step, codes,
+                                code_ffts, corr_spec=spec,
+                                n_streams=n_streams)
+            states, out = channel_step_k(cfg, k, states, heavy,
+                                         stream_no0 + k * step)
         outs.append(out)
     # per step [C, k, ...] -> [T, C, ...]
     return states, ChannelOut(*[torch.cat([x.transpose(0, 1) for x in f])

@@ -30,6 +30,7 @@ from gps_sdr_tpu_torch.ops.pvt import (FixBatch, FixResult, solve_fix,
                                        solve_velocity)
 from gps_sdr_tpu_torch.utils.cplist import CodePhaseList, cp_arrays, cp_concat
 from gps_sdr_tpu_torch.utils.gpstime import gps_datetime
+from gps_sdr_tpu_torch.utils.profiling import span
 from gps_sdr_tpu_torch.utils.tuplelog import TupleLog
 
 
@@ -825,9 +826,10 @@ class Evaluator:
 
     def process(self, epoch: EpochInput) -> dict:
         """Consume one reporting interval; returns a summary dict."""
-        stage = self.process_begin(epoch)
-        sat_res = finish_deferred(stage[1], self.cfg)
-        return self.process_finish(stage, sat_res)
+        with span("eval.process"):
+            stage = self.process_begin(epoch)
+            sat_res = finish_deferred(stage[1], self.cfg)
+            return self.process_finish(stage, sat_res)
 
     def process_begin(self, epoch: EpochInput):
         """Phase 1: frame ingest + code-phase walks, up to (but not
@@ -958,19 +960,20 @@ def process_many(pairs: list) -> list:
     """
     if not pairs:
         return []
-    stages = [(ev, ev.process_begin(e)) for ev, e in pairs]
-    cfg = pairs[0][0].cfg
-    all_deferred = [d for _ev, st in stages for d in st[1]]
-    rows = finish_deferred(all_deferred, cfg)
-    mids = []
-    i = 0
-    for ev, st in stages:
-        n = sum(len(d) for d in st[1])
-        mids.append((ev, ev.process_finish_pre(st, rows.rows(i, i + n))))
-        i += n
-    fixes_per = _solve_fixes_many(mids)
-    return [ev.process_finish_post(mid, fx)
-            for (ev, mid), fx in zip(mids, fixes_per)]
+    with span("eval.process"):
+        stages = [(ev, ev.process_begin(e)) for ev, e in pairs]
+        cfg = pairs[0][0].cfg
+        all_deferred = [d for _ev, st in stages for d in st[1]]
+        rows = finish_deferred(all_deferred, cfg)
+        mids = []
+        i = 0
+        for ev, st in stages:
+            n = sum(len(d) for d in st[1])
+            mids.append((ev, ev.process_finish_pre(st, rows.rows(i, i + n))))
+            i += n
+        fixes_per = _solve_fixes_many(mids)
+        return [ev.process_finish_post(mid, fx)
+                for (ev, mid), fx in zip(mids, fixes_per)]
 
 
 def _solve_fixes_many(mids: list) -> list[dict]:

@@ -28,6 +28,7 @@ from gps_sdr_tpu_torch.ops import cacode
 from gps_sdr_tpu_torch.runtime.channelmgr import SlotTable, select_sats
 from gps_sdr_tpu_torch.runtime.evaluator import EpochInput
 from gps_sdr_tpu_torch.utils.cplist import CodePhaseList
+from gps_sdr_tpu_torch.utils.profiling import count, span
 from gps_sdr_tpu_torch.device import resolve_device
 from gps_sdr_tpu_torch.ops.acquisition import acquire_all
 from gps_sdr_tpu_torch.ops.tracking import (_LAST_IDX, ChannelOut,
@@ -212,8 +213,9 @@ class Receiver:
 
     def _run_chunk(self, chunk: list[np.ndarray],
                    skipped: int) -> EpochInput:
-        outs_dev, stream0 = self._dispatch_chunk(chunk)
-        return self._consume_chunk(chunk, outs_dev, stream0, skipped)
+        with span("rx.chunk"):
+            outs_dev, stream0 = self._dispatch_chunk(chunk)
+            return self._consume_chunk(chunk, outs_dev, stream0, skipped)
 
     def _dispatch_chunk(self, chunk):
         """Enqueue one chunk's tracking; returns the device outputs and
@@ -225,9 +227,11 @@ class Receiver:
         if isinstance(chunk, _DeviceChunk):
             blocks = chunk.blocks_dev
         else:
-            blocks = torch.as_tensor(np.stack(chunk).astype(np.complex64,
-                                                            copy=False),
-                                     device=self.device)
+            with span("rx.upload"):
+                blocks = torch.as_tensor(
+                    np.stack(chunk).astype(np.complex64, copy=False),
+                    device=self.device)
+            count("rx.upload_bytes", blocks.numel() * blocks.element_size())
         if cfg.blocks_per_step > 1:
             self.states, outs = track_chunk_batched_impl(
                 cfg, self.states, blocks, stream0, self._codes_dev,
@@ -240,6 +244,7 @@ class Receiver:
         self.status.k_steps += self._k_steps(nb)
         self.status.stream_no += nb
         self.status.blocks_processed += nb
+        count("rx.blocks", nb)
         return outs, stream0
 
     def _k_steps(self, n_blocks: int) -> int:
@@ -260,51 +265,54 @@ class Receiver:
         locked at ANY block, and a sweep request raised at ANY block is
         served."""
         cfg = self.cfg
-        outs = (outs_dev if isinstance(outs_dev.code_phase, np.ndarray)
-                else outs_to_numpy(outs_dev))
+        if isinstance(outs_dev.code_phase, np.ndarray):
+            outs = outs_dev
+        else:
+            with span("rx.download"):
+                outs = outs_to_numpy(outs_dev)
+        with span("rx.nav"):
+            coph: dict = {}
+            cfrq: dict = {}
+            for slot, prn in enumerate(self.slots.slot_prn):
+                if prn == 0:
+                    continue
+                self.decoders[slot].push_chunk(
+                    outs.sign0[:, slot], outs.edge_ms[:, slot],
+                    outs.edge_local[:, slot], outs.edge_valid[:, slot],
+                    stream_no0=stream0, erased=outs.erased[:, slot])
+                cp = outs.code_phase[:, slot]
+                ok = np.nonzero(cp >= 0)[0]
+                if ok.size:
+                    snos = stream0 + ok
+                    coph[prn] = CodePhaseList(snos, cp[ok])
+                    if cfg.carrier_smoothing > 0:
+                        cfrq[prn] = CodePhaseList(snos, outs.freq[ok, slot])
+                self.corr_quality[prn] = (float(outs.corr_q[-1, slot]),
+                                          float(outs.corr_l[-1, slot]))
 
-        coph: dict = {}
-        cfrq: dict = {}
-        for slot, prn in enumerate(self.slots.slot_prn):
-            if prn == 0:
-                continue
-            self.decoders[slot].push_chunk(
-                outs.sign0[:, slot], outs.edge_ms[:, slot],
-                outs.edge_local[:, slot], outs.edge_valid[:, slot],
-                stream_no0=stream0, erased=outs.erased[:, slot])
-            cp = outs.code_phase[:, slot]
-            ok = np.nonzero(cp >= 0)[0]
-            if ok.size:
-                snos = stream0 + ok
-                coph[prn] = CodePhaseList(snos, cp[ok])
-                if cfg.carrier_smoothing > 0:
-                    cfrq[prn] = CodePhaseList(snos, outs.freq[ok, slot])
-            self.corr_quality[prn] = (float(outs.corr_q[-1, slot]),
-                                      float(outs.corr_l[-1, slot]))
+            frames: list = []
+            for slot, prn in enumerate(self.slots.slot_prn):
+                if prn == 0:
+                    continue
+                was_locked = (bool(outs.locked[:, slot].any()) if window
+                              else bool(outs.locked[-1, slot]))
+                subs = (self.decoders[slot].poll_subframes()
+                        if poll and was_locked else [])
+                if not subs:
+                    subs = [{}]
+                for sf in subs:
+                    sf["SAT"] = prn
+                    sf["AMP"] = float(outs.amplitude[-1, slot])
+                    sf["CN0"] = float(cn0_from_amp(outs.amplitude[-1, slot]))
+                    sf["CRM"] = float(outs.norm_max[-1, slot])
+                    sf["FRQ"] = float(outs.freq[-1, slot])
+                    sf["SWP"] = False
+                frames += subs
 
-        frames: list = []
-        for slot, prn in enumerate(self.slots.slot_prn):
-            if prn == 0:
-                continue
-            was_locked = (bool(outs.locked[:, slot].any()) if window
-                          else bool(outs.locked[-1, slot]))
-            subs = (self.decoders[slot].poll_subframes()
-                    if poll and was_locked else [])
-            if not subs:
-                subs = [{}]
-            for sf in subs:
-                sf["SAT"] = prn
-                sf["AMP"] = float(outs.amplitude[-1, slot])
-                sf["CN0"] = float(cn0_from_amp(outs.amplitude[-1, slot]))
-                sf["CRM"] = float(outs.norm_max[-1, slot])
-                sf["FRQ"] = float(outs.freq[-1, slot])
-                sf["SWP"] = False
-            frames += subs
-
-        # per-channel sweep requests raised on the chunk's last block
-        # (window mode: on any block)
-        req_flags = (outs.sweep_request.any(axis=0) if window
-                     else outs.sweep_request[-1])
+            # per-channel sweep requests raised on the chunk's last block
+            # (window mode: on any block)
+            req_flags = (outs.sweep_request.any(axis=0) if window
+                         else outs.sweep_request[-1])
         self._serve_requests(chunk, req_flags, frames)
         return EpochInput(skipped_samples=skipped * cfg.ngps,
                           frames=frames, code_phases=coph,
@@ -329,87 +337,87 @@ class Receiver:
         the dense-plane scatter: epoch for epoch identical to
         _consume_chunk(concat_outs(...), window=True).  `chunk` is the
         window's last chunk (sweep service)."""
-        cfg = self.cfg
-        sl = self._edge_sl
-        w = cw.last.shape[0]
-        li = _LAST_IDX
+        with span("rx.nav"):
+            cfg = self.cfg
+            sl = self._edge_sl
+            w = cw.last.shape[0]
+            li = _LAST_IDX
 
-        coph: dict = {}
-        cfrq: dict = {}
-        for slot, prn in enumerate(self.slots.slot_prn):
-            if prn == 0:
-                continue
-            aux = cw.aux[:, slot]
-            dec = self.decoders[slot]
-            pos = cw.edge_pos[:, slot]                     # [w, cap]
-            valid = pos >= 0
-            if (aux >= 4).any():
-                # rare (slot reset mid-window): rebuild this channel's
-                # dense planes and take the exact per-block erase path
-                n = w * t
-                ms_d = np.zeros((n, sl), np.int32)
-                loc_d = np.zeros((n, sl), np.int32)
-                val_d = np.zeros((n, sl), bool)
-                wk, ek = np.nonzero(valid)
-                if wk.size:
-                    fp = pos[wk, ek]
-                    tb = wk * t + fp // sl
-                    es = fp % sl
-                    ms_d[tb, es] = cw.edge_ms[:, slot][wk, ek]
-                    loc_d[tb, es] = cw.edge_local[:, slot][wk, ek]
-                    val_d[tb, es] = True
-                dec.push_chunk((aux % 4 - 1).astype(np.int8), ms_d,
-                               loc_d, val_d, stream_no0=stream0,
-                               erased=aux >= 4)
-            else:
-                if dec.last_sign == 0:
-                    nz = np.nonzero(aux != 1)[0]
-                    if nz.size:
-                        dec.last_sign = int(aux[nz[0]]) - 1
-                wk, ek = np.nonzero(valid)
-                if wk.size:
-                    fp = pos[wk, ek]
-                    blk = np.int64(stream0) + wk * t + fp // sl
-                    st = blk * cfg.ngps \
-                        + cw.edge_local[:, slot][wk, ek]
-                    ms = (st // dec.ms_from_st if dec.ms_from_st
-                          else cw.edge_ms[:, slot][wk, ek])
-                    dec.edge_parts.append((ms.astype(np.int64), st))
-            cp = cw.code_phase[:, slot]
-            ok = np.nonzero(cp >= 0)[0]
-            if ok.size:
-                snos = stream0 + ok
-                coph[prn] = CodePhaseList(snos, cp[ok])
-                if cfg.carrier_smoothing > 0:
-                    cfrq[prn] = CodePhaseList(snos,
-                                              cw.freq[:, slot][ok])
-            self.corr_quality[prn] = (
-                float(cw.last[-1, slot, li["corr_q"]]),
-                float(cw.last[-1, slot, li["corr_l"]]))
+            coph: dict = {}
+            cfrq: dict = {}
+            for slot, prn in enumerate(self.slots.slot_prn):
+                if prn == 0:
+                    continue
+                aux = cw.aux[:, slot]
+                dec = self.decoders[slot]
+                pos = cw.edge_pos[:, slot]                     # [w, cap]
+                valid = pos >= 0
+                if (aux >= 4).any():
+                    # rare (slot reset mid-window): rebuild this channel's
+                    # dense planes and take the exact per-block erase path
+                    n = w * t
+                    ms_d = np.zeros((n, sl), np.int32)
+                    loc_d = np.zeros((n, sl), np.int32)
+                    val_d = np.zeros((n, sl), bool)
+                    wk, ek = np.nonzero(valid)
+                    if wk.size:
+                        fp = pos[wk, ek]
+                        tb = wk * t + fp // sl
+                        es = fp % sl
+                        ms_d[tb, es] = cw.edge_ms[:, slot][wk, ek]
+                        loc_d[tb, es] = cw.edge_local[:, slot][wk, ek]
+                        val_d[tb, es] = True
+                    dec.push_chunk((aux % 4 - 1).astype(np.int8), ms_d,
+                                   loc_d, val_d, stream_no0=stream0,
+                                   erased=aux >= 4)
+                else:
+                    if dec.last_sign == 0:
+                        nz = np.nonzero(aux != 1)[0]
+                        if nz.size:
+                            dec.last_sign = int(aux[nz[0]]) - 1
+                    wk, ek = np.nonzero(valid)
+                    if wk.size:
+                        fp = pos[wk, ek]
+                        blk = np.int64(stream0) + wk * t + fp // sl
+                        st = blk * cfg.ngps \
+                            + cw.edge_local[:, slot][wk, ek]
+                        ms = (st // dec.ms_from_st if dec.ms_from_st
+                              else cw.edge_ms[:, slot][wk, ek])
+                        dec.edge_parts.append((ms.astype(np.int64), st))
+                cp = cw.code_phase[:, slot]
+                ok = np.nonzero(cp >= 0)[0]
+                if ok.size:
+                    snos = stream0 + ok
+                    coph[prn] = CodePhaseList(snos, cp[ok])
+                    if cfg.carrier_smoothing > 0:
+                        cfrq[prn] = CodePhaseList(snos,
+                                                  cw.freq[:, slot][ok])
+                self.corr_quality[prn] = (
+                    float(cw.last[-1, slot, li["corr_q"]]),
+                    float(cw.last[-1, slot, li["corr_l"]]))
 
-        frames: list = []
-        for slot, prn in enumerate(self.slots.slot_prn):
-            if prn == 0:
-                continue
-            was_locked = bool(
-                (cw.last[:, slot, li["locked"]] > 0.5).any())
-            subs = (self.decoders[slot].poll_subframes()
-                    if poll and was_locked else [])
-            if not subs:
-                subs = [{}]
-            amp = float(cw.last[-1, slot, li["amplitude"]])
-            for sf in subs:
-                sf["SAT"] = prn
-                sf["AMP"] = amp
-                sf["CN0"] = float(cn0_from_amp(amp))
-                sf["CRM"] = float(cw.last[-1, slot, li["norm_max"]])
-                sf["FRQ"] = float(cw.last[-1, slot, li["freq"]])
-                sf["SWP"] = False
-            frames += subs
+            frames: list = []
+            for slot, prn in enumerate(self.slots.slot_prn):
+                if prn == 0:
+                    continue
+                was_locked = bool(
+                    (cw.last[:, slot, li["locked"]] > 0.5).any())
+                subs = (self.decoders[slot].poll_subframes()
+                        if poll and was_locked else [])
+                if not subs:
+                    subs = [{}]
+                amp = float(cw.last[-1, slot, li["amplitude"]])
+                for sf in subs:
+                    sf["SAT"] = prn
+                    sf["AMP"] = amp
+                    sf["CN0"] = float(cn0_from_amp(amp))
+                    sf["CRM"] = float(cw.last[-1, slot, li["norm_max"]])
+                    sf["FRQ"] = float(cw.last[-1, slot, li["freq"]])
+                    sf["SWP"] = False
+                frames += subs
 
-        self._serve_requests(
-            chunk, (cw.last[:, :, li["sweep_request"]] > 0.5).any(axis=0),
-            frames)
+            req_flags = (cw.last[:, :, li["sweep_request"]] > 0.5).any(axis=0)
+        self._serve_requests(chunk, req_flags, frames)
         return EpochInput(skipped_samples=0, frames=frames,
                           code_phases=coph, carrier_freqs=cfrq or None)
 
@@ -451,7 +459,8 @@ class Receiver:
             n = len(windows) if count is None else count
             while n > 0 and windows:
                 take, download = windows.pop(0)
-                host = download.result()
+                with span("rx.download"):
+                    host = download.result()
                 n -= 1
                 if cfg.epoch_per_window:
                     # one consume pass over the whole window, straight
@@ -495,6 +504,7 @@ class Receiver:
                 self.status.stream_no += w * t
                 self.status.blocks_processed += w * t
                 self.status.k_steps += w * self._k_steps(t)
+                count("rx.blocks", w * t)
                 # win[i] is a view: nothing is copied unless a channel
                 # sweep reads one of its blocks
                 windows.append((

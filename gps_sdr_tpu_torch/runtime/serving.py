@@ -28,8 +28,6 @@ indexed by a view (win[i] of the shared window or of a stream's own).
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -43,6 +41,7 @@ from gps_sdr_tpu_torch.ops.tracking import (_LAST_IDX, ChannelState,
                                             unpack_window_compact)
 from gps_sdr_tpu_torch.runtime.receiver import (Receiver, _DeviceChunk,
                                                 _Download, _download_block)
+from gps_sdr_tpu_torch.utils.profiling import span
 
 
 class _GroupDownload:
@@ -156,6 +155,36 @@ class StreamServer:
             outs.append(out)
         return outs
 
+    def _sweep_streams(self, providers: list, shared: bool, first: int,
+                       t: int) -> None:
+        """Serve the full-grid sweep of every stream that asks for one,
+        on the first block of its chunk at `first`, and push the new
+        channel sets into the stacked state."""
+        acq = ([providers[0](first, t)] if shared
+               else [p(first, t) for p in providers])
+        # replicas of one capture see the same blocks, so the full-grid
+        # acquisition gives the same result: run it once and hand it to
+        # the other streams.  Warm-hinted receivers sweep their own
+        # narrowed grid.
+        shared_found = None
+        for s, rec in enumerate(self.receivers):
+            if not rec.sweep_all:
+                continue
+            blk0 = _download_block(acq[0 if shared else s], 0)
+            if self._stacked is not None:
+                rec.states = self._slice_stream(s)
+            had_hints = rec.warm_hints is not None
+            if shared and not had_hints and shared_found is not None:
+                rec._serve_sweep_all(blk0, found=shared_found)
+            else:
+                rec._serve_sweep_all(blk0)
+                if shared and not had_hints:
+                    shared_found = rec.found_sats
+            if self._stacked is not None:
+                self._scatter_stream(s)
+        if self._stacked is None:      # cold start: first stack
+            self._restack()
+
     def run(self, providers, n_chunks: int,
             chunk_blocks: int | None = None):
         """Yield (stream_idx, EpochInput) pairs, chunk-major.
@@ -167,15 +196,15 @@ class StreamServer:
         is relative to this call; stream numbers continue from where the
         receivers left off.
 
-        Wall-clock stage totals accumulate in `self.perf` (seconds):
-        dispatch (provider + tracking enqueue), pack, stack (window
-        stacking + the start of its pinned copy), transfer (waiting for a
-        window's copy), unpack (host decode of packed rows), consume
-        (receiver nav/epoch build).  The evaluator's time is the
-        caller's: everything outside the generator."""
+        Wall-clock stage totals of this call accumulate in `self.perf`
+        (seconds), each the sum of the stage's span (serve.<stage>):
+        dispatch (channel sweeps, provider + tracking enqueue), pack,
+        stack (window stacking + the start of its pinned copy), transfer
+        (waiting for a window's copy), unpack (host decode of packed
+        rows), consume (receiver nav/epoch build).  The evaluator's time
+        is the caller's: everything outside the generator."""
         perf = self.perf = {k: 0.0 for k in (
             "dispatch", "pack", "stack", "transfer", "unpack", "consume")}
-        _pc = time.perf_counter
         cfg = self.cfg
         s_n = self.n_streams
         if callable(providers):
@@ -193,12 +222,13 @@ class StreamServer:
         def flush_held():
             if not held:
                 return
-            t0 = _pc()
-            windows.append(([(c, n0) for c, _, n0 in held], _GroupDownload(
-                [torch.stack([p[g] for _, p, _ in held])    # [w', S_g, L]
-                 for g in range(len(self._group_devs))])))
-            held.clear()
-            perf["stack"] += _pc() - t0
+            with span("serve.stack") as sp:
+                packed = [torch.stack([p[g] for _, p, _ in held])
+                          for g in range(len(self._group_devs))]
+                windows.append(([(c, n0) for c, _, n0 in held],
+                                _GroupDownload(packed)))  # [w', S_g, L]
+                held.clear()
+            perf["stack"] += sp.seconds
 
         def want_state(s, want_sweep):
             # expose this stream's device state to the host-side channel
@@ -234,23 +264,26 @@ class StreamServer:
             while n > 0 and windows:
                 take, download = windows.pop(0)
                 n -= 1
-                t0 = _pc()
-                host = download.result()           # [w', S, L]
-                perf["transfer"] += _pc() - t0
+                with span("serve.transfer") as sp:
+                    host = download.result()           # [w', S, L]
+                perf["transfer"] += sp.seconds
                 if cfg.epoch_per_window:
                     # one consume pass per stream over the whole window,
                     # straight from the sparse transport view
                     for s, rec in enumerate(self.receivers):
-                        t2 = _pc()
-                        cw = unpack_window_compact(
-                            host[:, s], t, cfg.max_sat, sl, cap, with_freq)
-                        rec.status.edge_overflows += int(cw.dropped.sum())
-                        t3 = _pc()
-                        perf["unpack"] += t3 - t2
-                        # timed before the yield: the generator suspends
+                        with span("serve.unpack") as sp:
+                            cw = unpack_window_compact(
+                                host[:, s], t, cfg.max_sat, sl, cap,
+                                with_freq)
+                            rec.status.edge_overflows += int(
+                                cw.dropped.sum())
+                        perf["unpack"] += sp.seconds
+                        # closed before the yield: the generator suspends
                         # there, and the caller's work is not consume's
-                        out = consume_window(s, take[-1][0], cw, take[0][1])
-                        perf["consume"] += _pc() - t3
+                        with span("serve.consume") as sp:
+                            out = consume_window(s, take[-1][0], cw,
+                                                 take[0][1])
+                        perf["consume"] += sp.seconds
                         yield s, out
                     continue
                 for i, ((chunks, stream0), row) in enumerate(zip(take,
@@ -258,14 +291,15 @@ class StreamServer:
                     poll = (not cfg.defer_subframe_poll
                             or i == len(take) - 1)
                     for s, rec in enumerate(self.receivers):
-                        t2 = _pc()
-                        outs, dropped = unpack_outs_compact(
-                            row[s], t, cfg.max_sat, sl, cap, with_freq)
-                        rec.status.edge_overflows += int(dropped.sum())
-                        t3 = _pc()
-                        perf["unpack"] += t3 - t2
-                        out = consume_one(s, chunks, outs, stream0, poll)
-                        perf["consume"] += _pc() - t3
+                        with span("serve.unpack") as sp:
+                            outs, dropped = unpack_outs_compact(
+                                row[s], t, cfg.max_sat, sl, cap, with_freq)
+                            rec.status.edge_overflows += int(dropped.sum())
+                        perf["unpack"] += sp.seconds
+                        with span("serve.consume") as sp:
+                            out = consume_one(s, chunks, outs, stream0,
+                                              poll)
+                        perf["consume"] += sp.seconds
                         yield s, out
 
         def advance(n_blocks):
@@ -288,71 +322,51 @@ class StreamServer:
             self._restack()
         ci = 0
         while ci < n_chunks:
-            t0 = _pc()
             first = ci * t
-            if any(r.sweep_all for r in self.receivers):
+            sweep = any(r.sweep_all for r in self.receivers)
+            window = fused and ci + w <= n_chunks
+            if sweep or window:
+                # a sweep changes the states: drain the pipeline first;
+                # a fused window follows any partial one from a cold start
                 flush_held()
-                yield from drain()
-                acq = ([providers[0](first, t)] if shared
-                       else [p(first, t) for p in providers])
-                # replicas of one capture see the same blocks, so the
-                # full-grid acquisition gives the same result: run it
-                # once and hand it to the other streams.  Warm-hinted
-                # receivers sweep their own narrowed grid.
-                shared_found = None
-                for s, rec in enumerate(self.receivers):
-                    if not rec.sweep_all:
-                        continue
-                    blk0 = _download_block(acq[0 if shared else s], 0)
-                    if self._stacked is not None:
-                        rec.states = self._slice_stream(s)
-                    had_hints = rec.warm_hints is not None
-                    if (shared and not had_hints
-                            and shared_found is not None):
-                        rec._serve_sweep_all(blk0, found=shared_found)
-                    else:
-                        rec._serve_sweep_all(blk0)
-                        if shared and not had_hints:
-                            shared_found = rec.found_sats
-                    if self._stacked is not None:
-                        self._scatter_stream(s)
-                if self._stacked is None:      # cold start: first stack
-                    self._restack()
-            stream0 = self.receivers[0].status.stream_no + 1
-            if fused and ci + w <= n_chunks:
-                flush_held()          # a partial window from a cold start
-                # [w, t, *iq]: the shared window, or one a stream
-                wins = [b.reshape((w, t) + tuple(b.shape[1:])) for b in
-                        (p(first, w * t) for p in providers[:1 if shared
-                                                            else s_n])]
-                packed = self._track(track_streams_window_impl,
-                                     wins, shared, 1, stream0, cap,
-                                     with_freq)
-                advance(w * t)
-                t1 = _pc()
-                perf["dispatch"] += t1 - t0
-                windows.append(([([_DeviceChunk(x[i]) for x in wins],
-                                  stream0 + i * t) for i in range(w)],
-                                _GroupDownload(packed)))
-                perf["stack"] += _pc() - t1
+                if sweep:
+                    yield from drain()
+            with span("serve.dispatch") as sp:
+                if sweep:
+                    self._sweep_streams(providers, shared, first, t)
+                stream0 = self.receivers[0].status.stream_no + 1
+                if window:
+                    # [w, t, *iq]: the shared window, or one a stream
+                    wins = [b.reshape((w, t) + tuple(b.shape[1:])) for b in
+                            (p(first, w * t) for p in
+                             providers[:1 if shared else s_n])]
+                    packed = self._track(track_streams_window_impl,
+                                         wins, shared, 1, stream0, cap,
+                                         with_freq)
+                    advance(w * t)
+                else:
+                    chunks = ([providers[0](first, t)] if shared
+                              else [p(first, t) for p in providers])
+                    outs = self._track(track_streams_impl, chunks, shared,
+                                       0, stream0)
+                    advance(t)
+            perf["dispatch"] += sp.seconds
+            if window:
+                with span("serve.stack") as sp:
+                    windows.append(([([_DeviceChunk(x[i]) for x in wins],
+                                      stream0 + i * t) for i in range(w)],
+                                    _GroupDownload(packed)))
+                perf["stack"] += sp.seconds
                 ci += w
-                if len(windows) >= inflight:
-                    yield from drain(1)
-                continue
-            chunks = ([providers[0](first, t)] if shared
-                      else [p(first, t) for p in providers])
-            outs = self._track(track_streams_impl, chunks, shared, 0,
-                               stream0)
-            advance(t)
-            t1 = _pc()
-            perf["dispatch"] += t1 - t0
-            held.append(([_DeviceChunk(c) for c in chunks],
-                         [pack_outs_compact(o, cap, with_freq)
-                          for o in outs], stream0))
-            perf["pack"] += _pc() - t1
-            ci += 1
-            if len(held) == w:
-                flush_held()
+            else:
+                with span("serve.pack") as sp:
+                    held.append(([_DeviceChunk(c) for c in chunks],
+                                 [pack_outs_compact(o, cap, with_freq)
+                                  for o in outs], stream0))
+                perf["pack"] += sp.seconds
+                ci += 1
+                if len(held) == w:
+                    flush_held()
             if len(windows) >= inflight:
                 yield from drain(1)
         flush_held()

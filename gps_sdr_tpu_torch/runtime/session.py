@@ -18,7 +18,7 @@ from gps_sdr_tpu_torch.config import ReceiverConfig
 from gps_sdr_tpu_torch.runtime.evaluator import EpochInput, Evaluator
 from gps_sdr_tpu_torch.runtime.receiver import Receiver
 from gps_sdr_tpu_torch.utils import io
-from gps_sdr_tpu_torch.utils.profiling import RateMeter
+from gps_sdr_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -34,32 +34,29 @@ class Session:
     evaluator: Evaluator = None
     records: list = field(default_factory=list)
     summaries: list = field(default_factory=list)
-    meter: RateMeter | None = None
 
     def __post_init__(self):
-        preloaded = {}
-        if self.ephem_cache_path:
-            preloaded = io.load_ephemerides(self.ephem_cache_path)
-        almanacs, iono = {}, None
-        if self.almanac_cache_path:
-            almanacs, iono = io.load_almanac(self.almanac_cache_path)
-        self.receiver = Receiver(self.cfg, device=self.device)
-        self.evaluator = Evaluator(self.cfg, preloaded_ephem=preloaded,
-                                   iono_params=iono, almanacs=almanacs)
+        with span("session.open"):
+            preloaded = {}
+            if self.ephem_cache_path:
+                preloaded = io.load_ephemerides(self.ephem_cache_path)
+            almanacs, iono = {}, None
+            if self.almanac_cache_path:
+                almanacs, iono = io.load_almanac(self.almanac_cache_path)
+            self.receiver = Receiver(self.cfg, device=self.device)
+            self.evaluator = Evaluator(self.cfg, preloaded_ephem=preloaded,
+                                       iono_params=iono, almanacs=almanacs)
 
     def run_source(self, block_iter, skip_iter=None,
                    max_wall_sec: float | None = None) -> dict:
         """Run the full pipeline over a block source; returns a summary."""
-        self.meter = RateMeter(self.cfg.sample_rate)
         t0 = time.time()
-        done = 0
-        for epoch in self.receiver.run(block_iter, skip_iter=skip_iter):
-            self._consume(epoch)
-            processed = self.receiver.status.blocks_processed
-            self.meter.add((processed - done) * self.cfg.ngps)
-            done = processed
-            if max_wall_sec is not None and time.time() - t0 > max_wall_sec:
-                self.receiver.stop()
+        with span("session.run"):
+            for epoch in self.receiver.run(block_iter, skip_iter=skip_iter):
+                self._consume(epoch)
+                if (max_wall_sec is not None
+                        and time.time() - t0 > max_wall_sec):
+                    self.receiver.stop()
         return self.final_summary()
 
     def run_device_source(self, chunk_provider, n_chunks: int,
@@ -68,14 +65,10 @@ class Session:
         (chunk_provider(first_block, n_blocks) -> tensor, e.g.
         DeviceScenarioSynth.chunk_planar); only epoch results cross to
         the host.  Returns the summary."""
-        self.meter = RateMeter(self.cfg.sample_rate)
-        done = 0
-        for epoch in self.receiver.run_device(chunk_provider, n_chunks,
-                                              chunk_blocks):
-            self._consume(epoch)
-            processed = self.receiver.status.blocks_processed
-            self.meter.add((processed - done) * self.cfg.ngps)
-            done = processed
+        with span("session.run"):
+            for epoch in self.receiver.run_device(chunk_provider, n_chunks,
+                                                  chunk_blocks):
+                self._consume(epoch)
         return self.final_summary()
 
     def run_epoch_records(self, records: list) -> dict:
@@ -189,7 +182,6 @@ class Session:
     def final_summary(self) -> dict:
         ev = self.evaluator
         return {
-            "throughput": self.meter.summary() if self.meter else None,
             "n_positions": len(ev.positions),
             "stat": ev.stat,
             "n_outliers": len(ev.outliers),

@@ -21,6 +21,7 @@ from typing import Iterator
 import numpy as np
 
 from gps_sdr_tpu_torch.config import ReceiverConfig
+from gps_sdr_tpu_torch.utils.profiling import span
 
 
 def unpack_iq(words: np.ndarray) -> np.ndarray:
@@ -58,10 +59,12 @@ def replay_blocks(path: str, cfg: ReceiverConfig,
         if start_stream:
             f.seek(2 * cfg.ngps * start_stream, os.SEEK_SET)
         while max_blocks is None or n < max_blocks:
-            words = np.fromfile(f, dtype=np.uint16, count=cfg.ngps)
-            if words.size != cfg.ngps:
-                return  # EOF
-            yield unpack_iq(words)
+            with span("source.read"):
+                words = np.fromfile(f, dtype=np.uint16, count=cfg.ngps)
+                if words.size != cfg.ngps:
+                    return  # EOF
+                blk = unpack_iq(words)
+            yield blk
             n += 1
 
 

@@ -1,12 +1,21 @@
-"""Throughput observability of the port.
+"""Observability of the port: spans and counters, and the profiler trace.
 
-Port of gps_sdr_tpu/utils/profiling.py.  RateMeter (copied) tracks
-samples/s and the real-time factor over a sliding window; `trace()`
-wraps torch.profiler and writes a Chrome trace (viewable in Perfetto),
-and device_time_from_trace / op_breakdown_from_trace read the device's
-busy time and per-kernel totals back from it, with the JAX module's
-keys.  enable_compile_cache has no counterpart: the port compiles
-nothing per shape (its kernels are built once, ops/_build.py).
+`span(name)` times one stage of the program where the work happens;
+`count(name, n)` keeps an integer counter beside it.  Both
+keep host totals for the life of the process, which `snapshot()` reads
+and `reset()` clears.  While a torch.profiler session runs, a span also
+opens a `record_function` of its name, so it lands in the profiler's
+trace on that trace's clock, beside the device's kernels and copies;
+with no profiler running it opens none.  A span or counter that
+overlaps a profiler session adds nothing to the totals, which thereby
+stay on the untraced host clock.
+
+`trace()` wraps torch.profiler and writes a Chrome trace (viewable in
+Perfetto), and device_time_from_trace / op_breakdown_from_trace read
+the device's busy time and per-kernel totals back from it, with the
+JAX module's keys (port of gps_sdr_tpu/utils/profiling.py).
+enable_compile_cache has no counterpart: the port compiles nothing per
+shape (its kernels are built once, ops/_build.py).
 """
 
 from __future__ import annotations
@@ -16,56 +25,141 @@ import glob
 import gzip
 import json
 import os
+import threading
 import time
 from collections import defaultdict, deque
-from dataclasses import dataclass, field
+
+import torch
+
+RING = 8192           # durations a span name keeps for its percentiles
+
+_pc = time.perf_counter
+_profiling = torch.autograd._profiler_enabled
+_lock = threading.Lock()      # guards _threads
+_threads: list = []           # every thread's (spans, counts)
 
 
-@dataclass
-class RateMeter:
-    """Sliding-window samples/s + real-time-factor meter."""
+class _Totals:
+    __slots__ = ("count", "total_s", "self_s", "ring")
 
-    sample_rate: float                 # stream samples per stream second
-    window_sec: float = 10.0
-    _events: deque = field(default_factory=deque)   # (wall_t, n_samples)
-    total_samples: int = 0
-    t0: float | None = None
+    def __init__(self):
+        self.count = 0
+        self.total_s = 0.0
+        self.self_s = 0.0
+        self.ring = deque(maxlen=RING)
 
-    def add(self, n_samples: int) -> None:
-        now = time.perf_counter()
-        if self.t0 is None:
-            self.t0 = now
-        self.total_samples += n_samples
-        self._events.append((now, n_samples))
-        cutoff = now - self.window_sec
-        while self._events and self._events[0][0] < cutoff:
-            self._events.popleft()
 
-    @property
-    def samples_per_sec(self) -> float:
-        if len(self._events) < 2:
-            return 0.0
-        span = self._events[-1][0] - self._events[0][0]
-        n = sum(e[1] for e in self._events) - self._events[0][1]
-        return n / span if span > 0 else 0.0
+class _Local(threading.local):
+    """A thread's open spans and its own totals: only the thread writes
+    them, so the hot path takes no lock; snapshot() sums the threads."""
 
-    @property
-    def realtime_factor(self) -> float:
-        """Processing speed relative to the stream's own rate."""
-        return self.samples_per_sec / self.sample_rate
+    def __init__(self):
+        self.open = []        # open spans, innermost last
+        self.spans = {}       # name -> _Totals
+        self.counts = {}      # name -> int
+        with _lock:
+            _threads.append((self.spans, self.counts))
 
-    def summary(self) -> dict:
-        wall = (time.perf_counter() - self.t0) if self.t0 else 0.0
-        return {
-            "total_samples": self.total_samples,
-            "wall_sec": round(wall, 3),
-            "mean_rtf": round(
-                self.total_samples / self.sample_rate / wall, 2)
-            if wall > 0 else 0.0,
-            "window_rtf": round(self.realtime_factor, 2),
-            "window_msamples_per_sec": round(
-                self.samples_per_sec / 1e6, 2),
-        }
+
+_local = _Local()
+
+
+class span:
+    """Time the `with` block as stage `name`.
+
+    On exit `seconds` holds the block's duration, whatever the profiler
+    did.  The totals of `name` gain a count, the duration, its self time
+    (the duration less what the spans nested in it on this thread
+    cover) and a ring entry, unless the block overlapped a profiler
+    session: the profiler was on at its entry or exit, or at the entry
+    or exit of a span or counter inside it.  Its duration counts as
+    child time of the enclosing span either way.  A span inside a
+    generator is closed before the generator yields: the consumer's
+    work must not land in it."""
+
+    __slots__ = ("name", "seconds", "_t0", "_child", "_rf", "_traced")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.seconds = 0.0
+
+    def __enter__(self) -> "span":
+        if _profiling():
+            self._rf = torch.profiler.record_function(self.name)
+            self._rf.__enter__()
+            self._traced = True
+        else:
+            self._rf = None
+            self._traced = False
+        self._child = 0.0
+        _local.open.append(self)
+        self._t0 = _pc()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        dt = self.seconds = _pc() - self._t0
+        loc = _local
+        opened = loc.open
+        opened.pop()
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        elif _profiling():
+            self._traced = True
+        if opened:
+            parent = opened[-1]
+            parent._child += dt
+            if self._traced:
+                parent._traced = True
+        if self._traced:
+            return
+        t = loc.spans.get(self.name)
+        if t is None:
+            t = loc.spans[self.name] = _Totals()
+        t.count += 1
+        t.total_s += dt
+        t.self_s += dt - self._child
+        t.ring.append(dt)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to counter `name`; under a profiler session nothing is
+    added and the enclosing span counts as traced."""
+    loc = _local
+    if _profiling():
+        if loc.open:
+            loc.open[-1]._traced = True
+        return
+    loc.counts[name] = loc.counts.get(name, 0) + n
+
+
+def snapshot() -> dict:
+    """The totals of every thread summed, as plain data: {"spans":
+    {name: {"count", "total_s", "self_s", "durations_s" (the last RING
+    durations of each thread, oldest first)}}, "counts": {name: n}}."""
+    spans: dict = {}
+    counts: dict = {}
+    with _lock:
+        threads = list(_threads)
+    for thread_spans, thread_counts in threads:
+        for k, t in list(thread_spans.items()):
+            s = spans.setdefault(k, {"count": 0, "total_s": 0.0,
+                                     "self_s": 0.0, "durations_s": []})
+            s["count"] += t.count
+            s["total_s"] += t.total_s
+            s["self_s"] += t.self_s
+            s["durations_s"] += list(t.ring)
+        for k, n in list(thread_counts.items()):
+            counts[k] = counts.get(k, 0) + n
+    return {"spans": spans, "counts": counts}
+
+
+def reset() -> None:
+    """Clear every thread's span totals and counters."""
+    with _lock:
+        threads = list(_threads)
+    for thread_spans, thread_counts in threads:
+        thread_spans.clear()
+        thread_counts.clear()
 
 
 TRACE_SUFFIX = ".pt.trace.json.gz"

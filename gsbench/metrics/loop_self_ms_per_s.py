@@ -1,0 +1,23 @@
+"""Host milliseconds of Session.run_source's loop that no span inside it
+names (the self time of gps_sdr_tpu_torch.utils.profiling's session.run
+span: the loop's duration less source.read, rx.chunk, acq.sweep and
+eval.process) per signal second tracked (the rx.blocks counter times a
+block's seconds).  Both come from the program's totals over set-up's
+warm-up session and the untraced window: spans and counters add nothing
+while the profiler runs, so the traced lead-in and span, and the whole
+of the session they fall in, are left out.  None where the program
+keeps no such totals or recorded none."""
+
+
+def read(ctx):
+    from gps_sdr_tpu_torch.utils import profiling
+    if not hasattr(profiling, "snapshot"):
+        return None
+    snap = profiling.snapshot()
+    sp = snap["spans"].get("session.run")
+    blocks = snap["counts"].get("rx.blocks", 0)
+    if sp is None or not blocks:
+        return None
+    sh = ctx.shape
+    signal_s = blocks * sh["code_samples"] * sh["n_cyc"] / sh["fs"]
+    return 1e3 * sp["self_s"] / signal_s

@@ -265,15 +265,17 @@ def test_window_consume_matches_concat_outs():
 
 def test_run_device_session_counts_blocks():
     """Session.run_device_source feeds every epoch to the evaluator and
-    meters every block."""
+    counts every tracked block (the rx.blocks counter)."""
     from gps_sdr_tpu_torch.runtime.session import Session
+    from gps_sdr_tpu_torch.utils import profiling
 
     cfg = CFG.replace(chunks_per_download=2)
     iq = _planar_iq(4 * T)
     s = Session(cfg, device="cpu")
     _primed(s.receiver)
+    profiling.reset()
     summary = s.run_device_source(lambda f, n: torch.from_numpy(iq[f:f + n]),
                                   4, chunk_blocks=T)
     assert len(s.summaries) == 4
-    assert s.meter.total_samples == 4 * T * cfg.ngps
+    assert profiling.snapshot()["counts"]["rx.blocks"] == 4 * T
     assert summary["n_positions"] == 0          # 1 s of signal: no fix
