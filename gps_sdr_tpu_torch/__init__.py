@@ -21,6 +21,9 @@ noted:
                                _mix_wipeoff_kernel)
   ops/hopper_cheap.py          K-block cheap-stage kernel (csrc/cheap.cu,
                                for pallas_cheap.py _cheap_kernel)
+  ops/kstep_graphs.py          the K-fused loop's steps replayed as
+                               CUDA graphs on the card (no JAX
+                               counterpart: XLA compiles the loop)
   models/scenario_dev.py       device scenario synthesis
                                (models/scenario_jax.py)
   models/sim_dev.py            DeviceSynth, device parametric synthesis

@@ -43,6 +43,7 @@ Differences from the JAX module, none of which changes a result:
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -52,7 +53,7 @@ import torch
 from gps_sdr_tpu_torch.config import ReceiverConfig
 from gps_sdr_tpu_torch.device import resolve_device
 from gps_sdr_tpu_torch.ops import (corr, dsp, frontend, hopper_cheap,
-                                   hopper_wipeoff)
+                                   hopper_wipeoff, kstep_graphs)
 from gps_sdr_tpu_torch.utils.profiling import span
 
 TWO_PI = 2.0 * math.pi
@@ -370,9 +371,10 @@ def _corr_quality(found, buf, cnt, idx, cfg: ReceiverConfig):
     return buf, cnt.to(torch.int32), idx.to(torch.int32), corr_q, corr_l
 
 
-def _erased(state: ChannelState, stream_no0: int):
+def _erased(state: ChannelState, stream_no0):
     """Stream-skip erase at a step's first block: (erase flag, state with
-    the bit/edge carry wiped where erased)."""
+    the bit/edge carry wiped where erased).  stream_no0 is an int or an
+    int32 scalar tensor on the state's device (a captured K-step's)."""
     erase = ((stream_no0 - 1) != state.prev_stream) & state.active
     z8 = torch.zeros_like(state.sign0)
     return erase, state._replace(
@@ -554,14 +556,23 @@ def heavy_stage(cfg: ReceiverConfig, k: int, states: ChannelState,
         wipe_delay=wipe)
 
 
+def _filled(like: torch.Tensor, value) -> torch.Tensor:
+    """A fresh tensor shaped and typed as `like`, every element `value`:
+    an int, or an int32 scalar tensor on like's device."""
+    if isinstance(value, torch.Tensor):
+        return value.to(like.dtype).expand(like.shape).clone()
+    return torch.full_like(like, value)
+
+
 def channel_step_k(cfg: ReceiverConfig, k: int, states: ChannelState,
-                   heavy: HeavyOut, stream_no0: int
+                   heavy: HeavyOut, stream_no0
                    ) -> tuple[ChannelState, ChannelOut]:
     """Cheap feedback for one K-block step, all channels: erase on a
     stream gap, the per-block scan (hopper_cheap.cheap_scan: means,
     retune rotation, quality ring, edges, amplitude, PLL), then the
     carry de-rotation, NCO update and output assembly.  Outputs are
-    [C, k, ...]."""
+    [C, k, ...].  stream_no0, the step's first stream number, is an int
+    or an int32 scalar tensor on the states' device."""
     erase, st = _erased(states, stream_no0)
     co = hopper_cheap.cheap_scan(cfg, k, heavy.head_k, heavy.seg_sums_k,
                                  heavy.delay_k, heavy.wipe_delay, st)
@@ -577,7 +588,7 @@ def channel_step_k(cfg: ReceiverConfig, k: int, states: ChannelState,
     sweep_request = ((co.corr_cnt >= cfg.corr_hist_len)
                      & (co.corr_q[:, -1] < cfg.min_corr_q) & states.active)
 
-    sno = torch.full_like(states.prev_stream, stream_no0 + k - 1)
+    sno = _filled(states.prev_stream, stream_no0 + k - 1)
     computed = ChannelState(
         prn=states.prn, active=states.active, freq=new_freq,
         phase=new_phase, delay=heavy.new_delay_k[:, -1], locked=co.locked,
@@ -645,29 +656,35 @@ def track_chunk_batched_impl(cfg: ReceiverConfig, states: ChannelState,
                         code_ffts)
 
 
+def _kstep(cfg: ReceiverConfig, n_streams: int, states: ChannelState,
+           chunk: torch.Tensor, step: int, stream_no0, codes: torch.Tensor,
+           spec: torch.Tensor) -> tuple[ChannelState, ChannelOut]:
+    """K-step `step` of a chunk whose first block has stream number
+    stream_no0 (an int, or an int32 scalar tensor on the chunk's
+    device): heavy_stage, then channel_step_k."""
+    k = cfg.blocks_per_step
+    heavy = heavy_stage(cfg, k, states, chunk, step, codes, None,
+                        corr_spec=spec, n_streams=n_streams)
+    return channel_step_k(cfg, k, states, heavy, stream_no0 + k * step)
+
+
 def _fused_steps(cfg: ReceiverConfig, states: ChannelState,
                  blocks: torch.Tensor, t: int, stream_no0: int,
                  codes: torch.Tensor, code_ffts: torch.Tensor,
                  n_streams: int = 1) -> tuple[ChannelState, ChannelOut]:
     """The K-step loop over a chunk of t blocks, t a multiple of K: per
     step one wipeoff launch and one cheap launch for every channel (of
-    n_streams streams; see heavy_stage).  Outputs [T, C, ...]."""
+    n_streams streams; see heavy_stage).  On a CUDA device the steps
+    replay as CUDA graphs (ops/kstep_graphs.py).  Outputs [T, C, ...]."""
     k = cfg.blocks_per_step
     # the wipeoff kernel's layout, converted at most once per chunk
     if cfg.use_mxu_wipeoff:
         blocks = dsp.as_complex_input(blocks).contiguous()
     else:
         blocks = to_grouped_planar(cfg, blocks)
-    spec = corr.prep_spec(code_ffts)
-    outs = []
-    for step in range(t // k):
-        with span("track.kstep"):
-            heavy = heavy_stage(cfg, k, states, blocks, step, codes,
-                                code_ffts, corr_spec=spec,
-                                n_streams=n_streams)
-            states, out = channel_step_k(cfg, k, states, heavy,
-                                         stream_no0 + k * step)
-        outs.append(out)
+    states, outs = kstep_graphs.run(
+        cfg, n_streams, functools.partial(_kstep, cfg, n_streams), states,
+        blocks, t // k, stream_no0, codes, code_ffts)
     # per step [C, k, ...] -> [T, C, ...]
     return states, ChannelOut(*[torch.cat([x.transpose(0, 1) for x in f])
                                 for f in zip(*outs)])

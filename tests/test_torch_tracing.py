@@ -13,7 +13,10 @@ and the benchmark readers that read them, on the CPU.
     rx.upload_bytes is rx.blocks x ngps x 8 (complex64); each reader
     gives a number from that run and None from an empty snapshot;
   * StreamServer.perf keeps its six stages, each the sum of its
-    serve.<stage> span."""
+    serve.<stage> span;
+  * track.graph_captures and track.graph_replays count where the
+    K-steps run as graphs (on the CPU through tests/kstep_emulation.py)
+    and not on the plain path, and kstep_graph_share reads them."""
 
 import json
 import threading
@@ -31,6 +34,7 @@ from gps_sdr_tpu_torch.runtime.session import Session
 from gps_sdr_tpu_torch.runtime.sources import pack_iq, replay_blocks
 from gps_sdr_tpu_torch.utils import profiling
 from gps_sdr_tpu_torch.utils.profiling import count, span
+from kstep_emulation import emulated
 
 torch.set_num_threads(2)
 
@@ -247,3 +251,42 @@ def test_stream_server_perf_is_its_spans():
     for k in PERF_KEYS:
         assert srv.perf[k] > 0, k
         assert srv.perf[k] == pytest.approx(spans[f"serve.{k}"]["total_s"])
+
+
+GRAPH_COUNTERS = {"track.graph_captures", "track.graph_replays"}
+
+
+def test_graph_counters_only_where_the_graphs_run(tmp_path, monkeypatch):
+    """The plain path counts no capture and no replay.  Through the
+    graph cache, a session's first chunk of each shape runs eagerly and
+    captures a graph a K-step, and a second session of the same shapes
+    replays every K-step; each K-step stays one track.kstep span."""
+    from gsbench import manifest
+    share = manifest.reader("kstep_graph_share")
+    path = _capture(tmp_path)
+    Session(CFG, device="cpu").run_source(replay_blocks(path, CFG))
+    snap = profiling.snapshot()
+    assert not GRAPH_COUNTERS & set(snap["counts"])
+    assert snap["spans"]["track.kstep"]["count"] > 0
+    assert share.read(_ctx()) is None
+
+    emulated(monkeypatch)
+    profiling.reset()
+    first = Session(CFG, device="cpu")
+    first.run_source(replay_blocks(path, CFG))
+    k1 = first.receiver.status.k_steps
+    counts = profiling.snapshot()["counts"]
+    assert counts["track.graph_captures"] == k1 > 0
+    assert "track.graph_replays" not in counts
+    assert share.read(_ctx()) == 0.0
+    second = Session(CFG, device="cpu")
+    second.run_source(replay_blocks(path, CFG))
+    k2 = second.receiver.status.k_steps
+    snap = profiling.snapshot()
+    assert snap["counts"]["track.graph_captures"] == k1
+    assert snap["counts"]["track.graph_replays"] == k2 == k1
+    assert snap["spans"]["track.kstep"]["count"] == k1 + k2
+    assert share.read(_ctx()) == pytest.approx(100.0 * k2 / (k1 + k2))
+    # all replayed, the second session ends where the eager one did
+    for a, b in zip(first.receiver.states, second.receiver.states):
+        assert torch.equal(a, b)
