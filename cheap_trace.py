@@ -212,7 +212,10 @@ def f64_ulps(args, side, c, b):
         means, starts, _, n_valid, carry_sum, carry_cnt = \
             trk._means_from_sums(head[c:c + 1, j].to(torch.complex128),
                                  seg[c:c + 1, j].to(torch.complex128),
-                                 wipe[c:c + 1, j], carry_sum, carry_cnt, cfg)
+                                 wipe[c:c + 1, j], carry_sum, carry_cnt,
+                                 trk._continues(carry_cnt,
+                                                st.corr_cnt[c:c + 1] + j),
+                                 cfg)
     nv = int(n_valid[0])
     t_m = (starts[0, :nv].double() + 0.5 * cfg.code_samples) \
         / cfg.sample_rate

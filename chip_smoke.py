@@ -678,10 +678,16 @@ def check_cheap_chain(cfg, states, chunk, codes, code_ffts,
 def design_block(cfg, st, b, want, head, seg, delay, wipe, c_cnt, c_sum):
     """Fill block b of the cheap stage's wipeoff sums head c64[C, K] and
     seg c64[C, K, n_cyc] (CPU) so that its means after the retune
-    rotation are `want` c64[C, n_cyc + 1] (by source: 0 = carry + head,
-    j = segment j - 1): the raw sums are `want` rotated forward by the
-    angle the plain version applies, found by running it on blocks
-    0 .. b - 1 from state `st`.  c_cnt, c_sum: the partial code period
+    rotation are `want` c64[C, n_cyc + 1] (by source: 0 = the slot that
+    closes at the block's first boundary, j = segment j - 1): the raw
+    sums are `want` rotated forward by the angle the plain version
+    applies, found by running it on blocks 0 .. b - 1 from state `st`.
+    Source 0 is carry + head, and carry + head + segment 0 where the
+    boundary crossed the period upward after a carry
+    (tracking._means_from_sums); where it crossed downward the carry's
+    period keeps what the block before left and source 0 is the head's
+    period alone; after a block that ended on a boundary a head under
+    half a period is dropped.  c_cnt, c_sum: the partial code period
     carried into block b (numpy); returns the one carried out of it."""
     import numpy as np
     import torch
@@ -695,24 +701,31 @@ def design_block(cfg, st, b, want, head, seg, delay, wipe, c_cnt, c_sum):
     else:
         dphi = df_sum = torch.zeros(head.shape[0])
     w = wipe[:, b].numpy()
+    cnt0 = c_cnt + w
+    merged = (c_cnt > 0) & (2 * cnt0 < cs)
+    split = 2 * cnt0 > 3 * cs
+    used = (cnt0 > 0) & ~((c_cnt == 0) & (2 * w < cs))
     starts = np.concatenate(
-        [-c_cnt[:, None], w[:, None] + cs * np.arange(n_cyc)], axis=1)
+        [np.where(split, w - cs, -c_cnt)[:, None],
+         w[:, None] + cs * np.arange(n_cyc)], axis=1)
     t_m = (torch.from_numpy(starts.astype(np.float32)) + 0.5 * cs) \
         / cfg.sample_rate
     ang = dphi[:, None] + hopper_cheap.TWO_PI * df_sum[:, None] * t_m
     raw = want * torch.complex(torch.cos(ang), torch.sin(ang))
     seg[:, b] = raw[:, 1:] * cs
-    cnt0 = c_cnt + w
+    n0 = np.where(merged, cnt0 + cs, np.where(split, w, np.maximum(cnt0, 1)))
+    zero = torch.zeros_like(head[:, b])
+    rest = torch.where(torch.from_numpy(split), zero, torch.from_numpy(c_sum)) \
+        + torch.where(torch.from_numpy(merged), seg[:, b, 0], zero)
     head[:, b] = torch.where(
-        torch.from_numpy(cnt0 > 0),
-        raw[:, 0] * torch.from_numpy(np.maximum(cnt0, 1).astype(
-            np.float32)) - torch.from_numpy(c_sum), 0)
+        torch.from_numpy(used),
+        raw[:, 0] * torch.from_numpy(n0.astype(np.float32)) - rest, zero)
     c_sum = np.where(w > 0, seg[:, b, n_cyc - 1].numpy(), 0).astype(
         np.complex64)
     return np.where(w > 0, cs - w, 0), c_sum
 
 
-def cheap_case(cfg, n_ch, seed, device):
+def cheap_case(cfg, n_ch, seed, device, wraps: bool = True):
     """A crafted cheap-kernel case made with numpy from `seed`: the
     arguments of cheap_scan (cfg, K, head, seg, delay, wipe, state) on
     `device`, and what the case holds (`facts`).
@@ -723,11 +736,18 @@ def cheap_case(cfg, n_ch, seed, device):
     means with sign flips forced into the last two slots (31 and 32 at
     the product's n_cyc), or, in odd blocks of locked channels, phases
     alternating across +-pi/2 (a PLL unwrap step at every slot); wipe
-    delays 0 and cs - 1 in every channel (slot compaction when the
-    carry is empty, the full n_cyc + 1 slots after a cs - 1 block);
+    delays 0, 1, cs / 2 and cs - 1 in every channel (slot compaction
+    when the carry is empty; all n_cyc + 1 slots after a 1 block; the
+    period boundary crossed downward, 1 to cs - 1, which splits slot 0
+    in two, and upward, cs - 1 to 0, which merges slot 0 into segment
+    0; a head of 1 after delay 0, which is dropped);
     channels 0, 3, 6, 9 start unlocked with a 0.2 rad offset that
     vanishes from block 2, so they lock inside the step; full, wrapped
-    correlation and df rings; ms_time past 2^24 in even channels."""
+    correlation and df rings; ms_time past 2^24 in even channels.
+    wraps=False: the wipe delays 0, 1, cs / 2 and cs - 1 in an order in
+    which none crosses the period boundary (nor drops a head), and each
+    channel's carry in the block before the step's, the case on which
+    the JAX package, which shares fault A, is an oracle."""
     import numpy as np
     import torch
     from gps_sdr_tpu_torch.ops import tracking
@@ -765,15 +785,23 @@ def cheap_case(cfg, n_ch, seed, device):
         df_idx=torch.from_numpy(rng.integers(0, no_sec, n_ch).astype(
             np.int32)))
 
-    seq = np.resize([0, 0, cs - 1, 0, cs // 2, cs - 1, 1, 0], k)
+    seq = np.resize([0, 0, 1, cs - 1, 0, cs // 2, 1, 0] if wraps
+                    else [0, 0, cs - 1, cs // 2, 1, 0, cs // 2, 1], k)
     wipe = np.stack([np.roll(seq, c) for c in ch]).astype(np.int32)
+    if not wraps:
+        before = np.roll(seq, 1)[(-ch) % k]
+        carry_cnt = np.where(before > 0, cs - before, 0)
+        st = st._replace(
+            carry_sum=torch.from_numpy((carry_cnt * np.exp(1j * np.angle(
+                st.carry_sum.numpy()))).astype(np.complex64)),
+            carry_cnt=torch.from_numpy(carry_cnt.astype(np.int32)))
     delay = np.where(rng.random((n_ch, k)) < 0.3, -1,
                      rng.integers(0, cs, (n_ch, k))).astype(np.int32)
     head = torch.zeros((n_ch, k), dtype=torch.complex64)
     seg = torch.zeros((n_ch, k, n_cyc), dtype=torch.complex64)
     wipe_t, delay_t = torch.from_numpy(wipe), torch.from_numpy(delay)
     c_cnt, c_sum = st.carry_cnt.numpy(), st.carry_sum.numpy()
-    n_compact = n_jump_blocks = 0
+    n_compact = n_jump_blocks = n_dropped = n_merged = n_split = 0
     for b in range(k):
         # designed means, by source: 0 = carry + head, j = segment j - 1
         jumps = locked & (b % 2 == 1)
@@ -789,11 +817,17 @@ def cheap_case(cfg, n_ch, seed, device):
         want = torch.from_numpy((amp * signs * np.exp(1j * theta)).astype(
             np.complex64))
         n_jump_blocks += int(jumps.sum())
-        n_compact += int((c_cnt + wipe[:, b] == 0).sum())
+        cnt0 = c_cnt + wipe[:, b]
+        n_compact += int((cnt0 == 0).sum())
+        n_dropped += int(((c_cnt == 0) & (0 < cnt0) & (2 * cnt0 < cs)).sum())
+        n_merged += int(((c_cnt > 0) & (2 * cnt0 < cs)).sum())
+        n_split += int((2 * cnt0 > 3 * cs).sum())
         c_cnt, c_sum = design_block(cfg, st, b, want, head, seg, delay_t,
                                     wipe_t, c_cnt, c_sum)
     st = tracking.ChannelState(*(v.to(device) for v in st))
     facts = dict(compacted_blocks=n_compact, jump_blocks=n_jump_blocks,
+                 dropped_blocks=n_dropped, merged_blocks=n_merged,
+                 split_blocks=n_split, wraps=wraps,
                  wipes=sorted(set(wipe.ravel().tolist())))
     return ((cfg, k, head.to(device), seg.to(device), delay_t.to(device),
              wipe_t.to(device), st), facts)
@@ -831,7 +865,10 @@ def check_cheap_facts(cfg, out, facts) -> None:
     if not (~ls[:, 0] & ls[:, -1]).any():
         raise AssertionError("crafted cheap case: no channel locked "
                              "inside the step")
+    crossings = [facts[name] for name in ("dropped_blocks", "merged_blocks",
+                                          "split_blocks")]
     if not (facts["compacted_blocks"] and facts["jump_blocks"]
+            and (all(crossings) if facts["wraps"] else not any(crossings))
             and {0, cfg.code_samples - 1} <= set(facts["wipes"])):
         raise AssertionError(f"crafted cheap case: {facts}")
 

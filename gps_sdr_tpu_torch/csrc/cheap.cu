@@ -126,6 +126,16 @@ __device__ __forceinline__ float div_by_scalar(float a, float b) {
   return __fmul_rn(a, __fdiv_rn(1.f, b));
 }
 
+// v / d for a slot mean: the H = 4 build as the plain version rounds it
+// on the card (div_by_scalar), the H = 2 build as it always has
+template <int H>
+__device__ __forceinline__ float2 scale(float2 v, float d) {
+  if constexpr (H == 4)
+    return make_float2(div_by_scalar(v.x, d), div_by_scalar(v.y, d));
+  else
+    return make_float2(v.x / d, v.y / d);
+}
+
 __device__ __forceinline__ int pmod(int a, int n) {
   const int r = a % n;
   return r < 0 ? r + n : r;
@@ -346,48 +356,62 @@ __device__ void means_before_rotation(const CheapArgs& a, const Smem& m,
     m.ready[j] = 0;
   }
   const float2 cw = a.in.carry_sum[c];
-  const int cnt_in = a.in.carry_cnt[c];
+  const int cnt_in = a.in.carry_cnt[c], corr_in = a.in.corr_cnt[c];
   pair_sync();
+  // the channel continues a block of its stream (_continues): not
+  // erased (carry_cnt -1) and not fresh from a reset (corr_cnt 1)
+  const bool cont_in = cnt_in >= 0 && corr_in > 1;
   for (int b = h2; b < K; b += 2) {
     const int w = m.wipe[b], wp = b > 0 ? m.wipe[b - 1] : 0;
-    const int carry_cnt = b == 0 ? cnt_in : (wp > 0 ? cs - wp : 0);
+    const int carry_cnt =
+        b == 0 ? (cnt_in > 0 ? cnt_in : 0) : (wp > 0 ? cs - wp : 0);
     float2 carry = cw;
     if (b > 0)
       carry = wp > 0 ? m.seg[(b - 1) * n_cyc + n_cyc - 1]
                      : make_float2(0.f, 0.f);
     const int cnt0 = carry_cnt + w;
-    const bool v0 = cnt0 > 0;
+    // the boundary delay crossed the period boundary since the last
+    // block (_means_from_sums): slot 0 under half a period runs on
+    // through segment 0 after a carry, and is the tail of the period
+    // the last block closed (dropped) after none; over one and a half
+    // it splits into the carry's period and the head's
+    const bool tail = (b > 0 || cont_in) && carry_cnt == 0 && 2 * w < cs;
+    const bool shrt = carry_cnt > 0 && 2 * cnt0 < cs;
+    const bool lng = 2 * cnt0 > 3 * cs;
+    const bool v0 = cnt0 > 0 && !tail;
 #pragma unroll
     for (int h = 0; h < H; ++h) {
       const int r = lane + 32 * h;
       if (r < sl) {
-        // compaction when slot 0 is empty
-        const int src = v0 ? r : (r + 1 == sl ? 0 : r + 1);
-        float re, im;
+        float2 mv;
         int st;
-        if (src == 0) {
-          const float2 hd = m.head[b];
-          const float d = (float)(cnt0 > 1 ? cnt0 : 1);
-          if constexpr (H == 4) {    // a complex / real divides as 1 / d
-            re = div_by_scalar(carry.x + hd.x, d);
-            im = div_by_scalar(carry.y + hd.y, d);
-          } else {
-            re = (carry.x + hd.x) / d;
-            im = (carry.y + hd.y) / d;
-          }
+        if (lng && r < 2) {
+          mv = r == 0 ? scale<H>(carry, (float)(carry_cnt > 1 ? carry_cnt
+                                                              : 1))
+                      : scale<H>(m.head[b], (float)(w > 1 ? w : 1));
+          st = r == 0 ? -carry_cnt : w - cs;
+        } else if (shrt && r == 0) {
+          const float2 hd = m.head[b], s0 = m.seg[b * n_cyc];
+          mv = scale<H>(make_float2(carry.x + hd.x + s0.x,
+                                    carry.y + hd.y + s0.y),
+                        (float)(cnt0 + cs));
           st = -carry_cnt;
         } else {
-          const float2 sgv = m.seg[b * n_cyc + (src - 1)];
-          if constexpr (H == 4) {
-            re = div_by_scalar(sgv.x, (float)cs);
-            im = div_by_scalar(sgv.y, (float)cs);
+          // compaction when slot 0 is empty or merged, room for the
+          // split
+          const int src = lng ? r - 1
+                              : (v0 && !shrt ? r : (r + 1 == sl ? 0 : r + 1));
+          if (src == 0) {
+            const float2 hd = m.head[b];
+            mv = scale<H>(make_float2(carry.x + hd.x, carry.y + hd.y),
+                          (float)(cnt0 > 1 ? cnt0 : 1));
+            st = -carry_cnt;
           } else {
-            re = sgv.x / (float)cs;
-            im = sgv.y / (float)cs;
+            mv = scale<H>(m.seg[b * n_cyc + (src - 1)], (float)cs);
+            st = w + cs * (src - 1);
           }
-          st = w + cs * (src - 1);
         }
-        m.mean[b * S + r] = make_float2(re, im);
+        m.mean[b * S + r] = mv;
         m.t_m[b * S + r] =
             H == 4 ? div_by_scalar((float)st + 0.5f * (float)cs,
                                    a.sample_rate)
@@ -395,7 +419,9 @@ __device__ void means_before_rotation(const CheapArgs& a, const Smem& m,
         a.edge_local[((size_t)c * K + b) * sl + r] = st;
       }
     }
-    if (lane == 0) m.n_valid[b] = n_cyc - (w > 0 ? 1 : 0) + (v0 ? 1 : 0);
+    if (lane == 0)
+      m.n_valid[b] = n_cyc - (w > 0 ? 1 : 0) + (v0 ? 1 : 0) - (shrt ? 1 : 0)
+                     + (lng ? 1 : 0);
   }
   pair_sync();
 }

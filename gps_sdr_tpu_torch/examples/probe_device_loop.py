@@ -93,9 +93,9 @@ def probe(cfg, provider, n_chunks: int, warm: int, dev) -> dict:
             t2 = time.perf_counter()
             outs, dropped = unpack_outs_compact(
                 row, len(chunk), cfg.max_sat, rec._edge_sl, cap, with_freq)
-            rec.status.edge_overflows += int(dropped.sum())
             t3 = time.perf_counter()
-            epoch = rec._consume_chunk(chunk, outs, stream0, 0)
+            epoch = rec._consume_chunk(chunk, outs, stream0, 0,
+                                       dropped=int(dropped.sum()))
             t4 = time.perf_counter()
             ev.process(epoch)
             t5 = time.perf_counter()

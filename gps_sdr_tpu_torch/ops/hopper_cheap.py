@@ -113,7 +113,8 @@ def cheap_scan_plain(cfg: ReceiverConfig, k: int, head: torch.Tensor,
         means, starts, mask, n_valid, carry["carry_sum"], \
             carry["carry_cnt"] = trk._means_from_sums(
                 head[:, b], seg[:, b], wipe[:, b], carry["carry_sum"],
-                carry["carry_cnt"], cfg)
+                carry["carry_cnt"],
+                trk._continues(carry["carry_cnt"], carry["corr_cnt"]), cfg)
         # virtual NCO retune: the frequency corrections already commanded
         # this step as a per-ms phase ramp, plus the accumulated offset
         t_m = (starts.to(torch.float32) + 0.5 * cs) / fs

@@ -200,36 +200,81 @@ def _segment_sums_rolled(mixed: torch.Tensor, rolled: torch.Tensor,
     return lo[..., 0], seg
 
 
-def _means_from_sums(head, seg_sums, delay, carry_sum, carry_cnt,
+def _means_from_sums(head, seg_sums, delay, carry_sum, carry_cnt, cont,
                      cfg: ReceiverConfig):
     """Assemble the fixed n_cyc+1 means layout from (head, seg_sums).
 
     Slot 0 is the carry-completed mean (valid only if the carry plus
     head hold samples), slots 1..n_cyc the full segments (the last one
     invalid unless delay == 0); valid means are then compacted to the
-    front.  All inputs have the channel axis first."""
+    front.  All inputs have the channel axis first; carry_cnt < 0 marks
+    a channel erased by a stream gap (no carry), and `cont` the channels
+    that continue a block of their stream (neither erased nor fresh
+    from a reset).
+
+    The boundary delay is a code phase mod cs, so where it crossed the
+    period boundary since the last block, slot 0 (carry_cnt + delay
+    samples, from the last block's last boundary to this block's first)
+    is no longer ~cs long.  Under cs / 2 after a carry (the delay went
+    up through cs), the last block's last boundary and this block's
+    first are one: slot 0 runs on through segment 0.  Under cs / 2 after
+    a block that ended on a boundary (delay 0, no carry), the head is
+    the tail of the period that block closed and is dropped.  Over
+    3 cs / 2 (the delay went down through 0), slot 0 holds two periods:
+    the carry and the head each close one, the head's from delay - cs.
+    Either way each code period is one slot, so no sliver of a period
+    reads as a millisecond with a sign of its own."""
     cs, n_cyc = cfg.code_samples, cfg.n_cyc
     dev = head.device
-    cnt0 = carry_cnt + delay
+    cc = torch.clamp(carry_cnt, min=0)
+    cnt0 = cc + delay
     mean0 = (carry_sum + head) / torch.clamp(cnt0, min=1).to(torch.float32)
-    v0 = cnt0 > 0
+    tail = cont & (cc == 0) & (2 * delay < cs)
+    merged = (cc > 0) & (2 * cnt0 < cs)
+    split = 2 * cnt0 > 3 * cs
+    v0 = (cnt0 > 0) & ~tail
     k_full = n_cyc - (delay > 0).to(torch.int32)
 
     means = torch.cat([mean0[:, None], seg_sums / cs], dim=-1)
     q = torch.arange(n_cyc, dtype=torch.int32, device=dev)
-    starts = torch.cat([(-carry_cnt)[:, None], delay[:, None] + cs * q],
+    starts = torch.cat([(-cc)[:, None], delay[:, None] + cs * q],
                        dim=-1).to(torch.int32)
     new_carry_sum = torch.where(delay > 0, seg_sums[:, n_cyc - 1],
                                 torch.zeros_like(carry_sum))
     new_carry_cnt = torch.where(delay > 0, cs - delay,
                                 torch.zeros_like(delay)).to(torch.int32)
 
-    keep = v0[:, None]
-    means = torch.where(keep, means, torch.roll(means, -1, dims=-1))
-    starts = torch.where(keep, starts, torch.roll(starts, -1, dims=-1))
-    n_valid = (k_full + v0.to(torch.int32)).to(torch.int32)
+    # slot 0 empty, dropped or merged into segment 0: the segments move
+    # up one
+    up = (~v0 | merged)[:, None]
+    means = torch.where(up, torch.roll(means, -1, dims=-1), means)
+    starts = torch.where(up, torch.roll(starts, -1, dims=-1), starts)
+    at0 = merged[:, None] & (torch.arange(n_cyc + 1, device=dev) == 0)
+    first = (carry_sum + head + seg_sums[:, 0]) \
+        / (cnt0 + cs).to(torch.float32)
+    means = torch.where(at0, first[:, None], means)
+    starts = torch.where(at0, (-cc)[:, None], starts)
+    # slot 0 split in two: the segments move down one
+    halves = torch.stack([
+        carry_sum / torch.clamp(cc, min=1).to(torch.float32),
+        head / torch.clamp(delay, min=1).to(torch.float32)], dim=-1)
+    down = split[:, None]
+    means = torch.where(down, torch.cat(
+        [halves, means[:, 1:-1]], dim=-1), means)
+    starts = torch.where(down, torch.cat(
+        [(-cc)[:, None], (delay - cs)[:, None], starts[:, 1:-1]],
+        dim=-1), starts)
+    n_valid = (k_full + v0.to(torch.int32) - merged.to(torch.int32)
+               + split.to(torch.int32)).to(torch.int32)
     mask = torch.arange(n_cyc + 1, device=dev) < n_valid[:, None]
     return means, starts, mask, n_valid, new_carry_sum, new_carry_cnt
+
+
+def _continues(carry_cnt, corr_cnt):
+    """The channels that continue a block of their stream: not erased
+    (carry_cnt < 0, _erased) and not fresh from a reset (corr_cnt, which
+    a reset sets to 1, counts every block from 2 on)."""
+    return (carry_cnt >= 0) & (corr_cnt > 1)
 
 
 def _sign8(cond: torch.Tensor) -> torch.Tensor:
@@ -373,8 +418,10 @@ def _corr_quality(found, buf, cnt, idx, cfg: ReceiverConfig):
 
 def _erased(state: ChannelState, stream_no0):
     """Stream-skip erase at a step's first block: (erase flag, state with
-    the bit/edge carry wiped where erased).  stream_no0 is an int or an
-    int32 scalar tensor on the state's device (a captured K-step's)."""
+    the bit/edge carry wiped where erased, carry_cnt -1 there to tell
+    the means assembly that no block continues).  stream_no0 is an int
+    or an int32 scalar tensor on the state's device (a captured
+    K-step's)."""
     erase = ((stream_no0 - 1) != state.prev_stream) & state.active
     z8 = torch.zeros_like(state.sign0)
     return erase, state._replace(
@@ -382,7 +429,7 @@ def _erased(state: ChannelState, stream_no0):
         prev_sign=torch.where(erase, z8, state.prev_sign),
         carry_sum=torch.where(erase, torch.zeros_like(state.carry_sum),
                               state.carry_sum),
-        carry_cnt=torch.where(erase, torch.zeros_like(state.carry_cnt),
+        carry_cnt=torch.where(erase, torch.full_like(state.carry_cnt, -1),
                               state.carry_cnt))
 
 
@@ -408,7 +455,8 @@ def channel_step(cfg: ReceiverConfig, state: ChannelState,
     head, seg = _segment_sums_rolled(mixed, dsp.roll_code(codes, new_delay),
                                      new_delay, cfg)
     means, starts, mask, n_valid, carry_sum, carry_cnt = _means_from_sums(
-        head, seg, new_delay, st.carry_sum, st.carry_cnt, cfg)
+        head, seg, new_delay, st.carry_sum, st.carry_cnt,
+        _continues(st.carry_cnt, st.corr_cnt), cfg)
 
     min_edge_amp = cfg.edge_sigma * st.std_dev
     sign0, prev_sign, prev_signal, ms_time, ems, est, evalid = _edge_scan(

@@ -77,6 +77,7 @@ class Receiver:
         self.corr_quality: dict = {}       # prn -> (corr_q, corr_l)
         self.found_sats: list = []
         self.warm_hints: tuple | None = None   # (prns, doppler_bins)
+        self._last_cp: dict = {}           # slot -> last code phase seen
 
     # -- control surface
     def request_sweep(self) -> None:
@@ -107,6 +108,7 @@ class Receiver:
         self._codes[slot] = self._codes_tab[prn]
         self._ffts[slot] = self._ffts_tab[prn]
         self.decoders[slot] = NavDecoder(ngps=self.cfg.ngps)
+        self._last_cp.pop(slot, None)
 
     def _deactivate(self, prn: int) -> None:
         slot = self.slots.free(prn)
@@ -115,6 +117,7 @@ class Receiver:
         self._codes[slot] = 0
         self._ffts[slot] = 0
         self.decoders.pop(slot, None)
+        self._last_cp.pop(slot, None)
 
     def _refresh_code_tables(self) -> None:
         self._codes_dev = torch.as_tensor(self._codes, device=self.device)
@@ -171,6 +174,7 @@ class Receiver:
             self.states = reset_channel(self.states, slot, prn, freq,
                                         delay, self.cfg)
             self.decoders[slot] = NavDecoder(ngps=self.cfg.ngps)
+            self._last_cp.pop(slot, None)
             self.status.sweeps_served += 1
         return request_slots
 
@@ -254,16 +258,16 @@ class Receiver:
 
     def _consume_chunk(self, chunk, outs_dev: ChannelOut, stream0: int,
                        skipped: int, poll: bool = True,
-                       window: bool = False):
+                       window: bool = False, dropped: int = 0):
         """One chunk's (or, with window=True, one concatenated download
         window's) tracking outputs -> EpochInput (host side).
 
-        outs_dev holds tensors, or numpy arrays (unpack_outs_compact).
-        poll=False leaves the subframes in the decoders
-        (cfg.defer_subframe_poll).  window=True widens the last-block
-        gates to the whole window: subframes poll if the channel was
-        locked at ANY block, and a sweep request raised at ANY block is
-        served."""
+        outs_dev holds tensors, or numpy arrays (unpack_outs_compact,
+        which dropped `dropped` edges over its cap).  poll=False leaves
+        the subframes in the decoders (cfg.defer_subframe_poll).
+        window=True widens the last-block gates to the whole window:
+        subframes poll if the channel was locked at ANY block, and a
+        sweep request raised at ANY block is served."""
         cfg = self.cfg
         if isinstance(outs_dev.code_phase, np.ndarray):
             outs = outs_dev
@@ -271,8 +275,10 @@ class Receiver:
             with span("rx.download"):
                 outs = outs_to_numpy(outs_dev)
         with span("rx.nav"):
+            self._note_dropped(dropped)
             coph: dict = {}
             cfrq: dict = {}
+            wraps = 0
             for slot, prn in enumerate(self.slots.slot_prn):
                 if prn == 0:
                     continue
@@ -282,6 +288,7 @@ class Receiver:
                     stream_no0=stream0, erased=outs.erased[:, slot])
                 cp = outs.code_phase[:, slot]
                 ok = np.nonzero(cp >= 0)[0]
+                wraps += self._delay_wraps(slot, cp[ok])
                 if ok.size:
                     snos = stream0 + ok
                     coph[prn] = CodePhaseList(snos, cp[ok])
@@ -313,6 +320,7 @@ class Receiver:
             # (window mode: on any block)
             req_flags = (outs.sweep_request.any(axis=0) if window
                          else outs.sweep_request[-1])
+            count("track.delay_wraps", wraps)
         self._serve_requests(chunk, req_flags, frames)
         return EpochInput(skipped_samples=skipped * cfg.ngps,
                           frames=frames, code_phases=coph,
@@ -342,9 +350,11 @@ class Receiver:
             sl = self._edge_sl
             w = cw.last.shape[0]
             li = _LAST_IDX
+            self._note_dropped(int(cw.dropped.sum()))
 
             coph: dict = {}
             cfrq: dict = {}
+            wraps = 0
             for slot, prn in enumerate(self.slots.slot_prn):
                 if prn == 0:
                     continue
@@ -386,6 +396,7 @@ class Receiver:
                         dec.edge_parts.append((ms.astype(np.int64), st))
                 cp = cw.code_phase[:, slot]
                 ok = np.nonzero(cp >= 0)[0]
+                wraps += self._delay_wraps(slot, cp[ok])
                 if ok.size:
                     snos = stream0 + ok
                     coph[prn] = CodePhaseList(snos, cp[ok])
@@ -417,6 +428,7 @@ class Receiver:
                 frames += subs
 
             req_flags = (cw.last[:, :, li["sweep_request"]] > 0.5).any(axis=0)
+            count("track.delay_wraps", wraps)
         self._serve_requests(chunk, req_flags, frames)
         return EpochInput(skipped_samples=0, frames=frames,
                           code_phases=coph, carrier_freqs=cfrq or None)
@@ -468,7 +480,6 @@ class Receiver:
                     cw = unpack_window_compact(
                         host, len(take[0][0]), cfg.max_sat, self._edge_sl,
                         cap, with_freq)
-                    self.status.edge_overflows += int(cw.dropped.sum())
                     yield self._consume_window_compact(
                         take[-1][0], cw, take[0][2], len(take[0][0]))
                     continue
@@ -477,11 +488,11 @@ class Receiver:
                     outs, dropped = unpack_outs_compact(
                         row, len(chunk), cfg.max_sat, self._edge_sl, cap,
                         with_freq)
-                    self.status.edge_overflows += int(dropped.sum())
                     poll = (not cfg.defer_subframe_poll
                             or i == len(take) - 1)
                     yield self._consume_chunk(chunk, outs, stream0, 0,
-                                              poll=poll)
+                                              poll=poll,
+                                              dropped=int(dropped.sum()))
 
         # stream numbering continues from wherever this receiver left
         # off; the provider's `first` stays relative to this call
@@ -533,6 +544,24 @@ class Receiver:
                 yield from drain(1)
         flush_held()
         yield from drain()
+
+    def _note_dropped(self, n: int) -> None:
+        """Count edges the compact download dropped over its cap (0
+        where the outputs came whole)."""
+        self.status.edge_overflows += n
+        count("rx.edge_overflows", n)
+
+    def _delay_wraps(self, slot: int, cp: np.ndarray) -> int:
+        """How often the slot's code phase crossed the period boundary
+        from one block to the next over `cp`, its valid code phases in
+        block order, counting from the last one seen before them."""
+        if not cp.size:
+            return 0
+        prev = self._last_cp.get(slot)
+        self._last_cp[slot] = float(cp[-1])
+        seq = cp if prev is None else np.concatenate([[prev], cp])
+        return int((np.abs(np.diff(seq))
+                    > 0.5 * self.cfg.code_samples).sum())
 
     def _edge_cap(self, chunk_blocks: int) -> int:
         """Compact-download edge capacity for a chunk of this length."""

@@ -41,7 +41,7 @@ from gps_sdr_tpu_torch.ops.tracking import (_LAST_IDX, ChannelState,
                                             unpack_window_compact)
 from gps_sdr_tpu_torch.runtime.receiver import (Receiver, _DeviceChunk,
                                                 _Download, _download_block)
-from gps_sdr_tpu_torch.utils.profiling import span
+from gps_sdr_tpu_torch.utils.profiling import count, span
 
 
 class _GroupDownload:
@@ -239,11 +239,12 @@ class StreamServer:
                 rec.states = self._slice_stream(s)
             return rec.status.sweeps_served
 
-        def consume_one(s, chunks, outs, stream0, poll):
+        def consume_one(s, chunks, outs, stream0, poll, dropped):
             rec = self.receivers[s]
             before = want_state(s, outs.sweep_request[-1].any())
             epoch = rec._consume_chunk(chunks[0 if shared else s], outs,
-                                       stream0, 0, poll=poll)
+                                       stream0, 0, poll=poll,
+                                       dropped=dropped)
             if rec.status.sweeps_served != before:
                 self._scatter_stream(s)
             return epoch
@@ -275,8 +276,6 @@ class StreamServer:
                             cw = unpack_window_compact(
                                 host[:, s], t, cfg.max_sat, sl, cap,
                                 with_freq)
-                            rec.status.edge_overflows += int(
-                                cw.dropped.sum())
                         perf["unpack"] += sp.seconds
                         # closed before the yield: the generator suspends
                         # there, and the caller's work is not consume's
@@ -294,11 +293,10 @@ class StreamServer:
                         with span("serve.unpack") as sp:
                             outs, dropped = unpack_outs_compact(
                                 row[s], t, cfg.max_sat, sl, cap, with_freq)
-                            rec.status.edge_overflows += int(dropped.sum())
                         perf["unpack"] += sp.seconds
                         with span("serve.consume") as sp:
                             out = consume_one(s, chunks, outs, stream0,
-                                              poll)
+                                              poll, int(dropped.sum()))
                         perf["consume"] += sp.seconds
                         yield s, out
 
@@ -307,6 +305,7 @@ class StreamServer:
                 rec.status.stream_no += n_blocks
                 rec.status.blocks_processed += n_blocks
                 rec.status.k_steps += rec._k_steps(t) * (n_blocks // t)
+            count("rx.blocks", n_blocks * s_n)
 
         # fused window dispatch: a whole window of w chunks is tracked and
         # packed by one enqueue pass (track_streams_window_impl); shared

@@ -210,6 +210,41 @@ def test_streams_tracking_matches_jax(monkeypatch):
                                  jnp.asarray(blocks.numpy()),
                                  jnp.int32(1), jnp.asarray(codes.numpy()),
                                  jnp.asarray(ffts.numpy()))
+    # a channel whose code phase crosses the code period boundary in the
+    # call (stream 0's eighth: delay 255 to 0 at block 0, so the wipe
+    # delays, predicted from the delay a K-step began with, cross at the
+    # next K-step): from there on, the JAX package reads a one-sample
+    # sliver of a period as a millisecond of its own (fault A), so its
+    # amplitude and its carrier loop read another mean there; that
+    # channel's amplitude and carrier loop (frequency, phase, df ring)
+    # are held to JAX before that K-step (and it stays locked), every
+    # other field and channel throughout
+    k, cs = cfg.blocks_per_step, cfg.code_samples
+    n_ch = to.delay.shape[-1]
+    delays = torch.cat([states.delay.reshape(2, 1, n_ch), to.delay], dim=1)
+    steps = (delays.diff(dim=1).abs() > cs // 2).int().argmax(dim=1)
+    crossed = (delays.diff(dim=1).abs() > cs // 2).any(dim=1)     # [S, C]
+    assert crossed.sum() == 1
+    first = ((steps // k + 1) * k)[crossed].item()
+    assert 0 < first < to.freq.shape[1]
+    jfreq = torch.from_numpy(np.asarray(jo.freq))
+    jamp = torch.from_numpy(np.asarray(jo.amplitude))
+    np.testing.assert_allclose(to.freq.transpose(1, 2)[crossed][:, :first],
+                               jfreq.transpose(1, 2)[crossed][:, :first],
+                               atol=1e-2)
+    np.testing.assert_allclose(
+        to.amplitude.transpose(1, 2)[crossed][:, :first],
+        jamp.transpose(1, 2)[crossed][:, :first], rtol=1e-3)
+    assert to.locked.transpose(1, 2)[crossed][:, -1].all()
+    tst = tst._replace(**{name: torch.where(
+        crossed.reshape(getattr(tst, name).shape[:2] + (1,) * (
+            getattr(tst, name).ndim - 2)),
+        torch.from_numpy(np.asarray(getattr(jst, name))).reshape(
+            getattr(tst, name).shape), getattr(tst, name))
+        for name in ("freq", "phase", "df_buf")})
+    to = to._replace(freq=torch.where(crossed[:, None], jfreq, to.freq),
+                     amplitude=torch.where(crossed[:, None], jamp,
+                                           to.amplitude))
     for s in range(2):
         _compare(jtrk.ChannelState(*(x[s] for x in jst)),
                  jtrk.ChannelOut(*(x[s] for x in jo)),

@@ -220,8 +220,11 @@ def test_crafted_case_matches_jax(ref):
     kernel (sign flips in the last two slots, PLL unwrap steps, wipe
     delays 0 and cs - 1 with slot compaction, channels locking inside the
     step, full wrapped rings at no_sec = 128), through the port's plain
-    version and the JAX cheap stage."""
-    args, facts = chip_smoke.cheap_case(CFG, 4, 3, "cpu")
+    version and the JAX cheap stage.  Made without its crossings of the
+    code period boundary (wraps=False): the JAX package shares fault A,
+    so the case with them is held to the plain version on the card and
+    to the period rule here (test_crafted_wrap_case_keeps_one_period_a_slot)."""
+    args, facts = chip_smoke.cheap_case(CFG, 4, 3, "cpu", wraps=False)
     _, k, head, seg, delay, wipe, st = args
     chip_smoke.check_cheap_facts(CFG, hopper_cheap.cheap_scan_plain(*args),
                                  facts)
@@ -236,6 +239,36 @@ def test_crafted_case_matches_jax(ref):
     states = jtrk.unpack_states(ttrk.states_to_numpy(st))
     got, refs = _three_ways(states, heavy, 1)
     _compare(got, refs[ref == "pallas"])
+
+
+def test_crafted_wrap_case_keeps_one_period_a_slot(monkeypatch):
+    """chip_smoke.cheap_case with its crossings of the code period
+    boundary (slot 0 dropped after delay 0, merged into segment 0, split
+    in two) through the port's plain version: it reaches every fact it
+    was made for, and each channel's valid slots start one code period
+    apart, from half a period to one and a half (the case's own jumps of
+    cs / 2 included): no sliver of a period reads as a millisecond and
+    no slot holds two."""
+    seen = []
+    real = ttrk._means_from_sums
+
+    def record(*args):
+        out = real(*args)
+        seen.append((out[1], out[2]))                  # starts, mask
+        return out
+
+    monkeypatch.setattr(ttrk, "_means_from_sums", record)
+    args, facts = chip_smoke.cheap_case(CFG, 4, 3, "cpu")
+    seen.clear()                    # the design ran the blocks before
+    chip_smoke.check_cheap_facts(CFG, hopper_cheap.cheap_scan_plain(*args),
+                                 facts)
+    assert facts["wraps"]
+    cs = CFG.code_samples
+    for c in range(4):
+        starts = np.concatenate([b * CFG.ngps + st[c][m[c]].numpy()
+                                 for b, (st, m) in enumerate(seen)])
+        gaps = np.diff(starts)
+        assert ((cs // 2 <= gaps) & (gaps <= 3 * cs // 2)).all(), (c, gaps)
 
 
 def test_cheap_trace_plain_side():

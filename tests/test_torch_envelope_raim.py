@@ -6,7 +6,18 @@ only), each through the JAX Session and the port's Session on the CPU
 (tests/torch_envelope.py's comparisons: the same RAIM events, PRN and
 epoch exact, statistics rtol 1e-4), and the JAX test's three bars are
 applied to the port's runs.  test_aux_units.py's DOP check is twinned
-on the port's recorded epochs (test_dop_matches_jax)."""
+on the port's recorded epochs (test_dop_matches_jax).
+
+PRN 9's code phase crosses the code period boundary in this capture
+(2002 samples at the start, 16 at the end).  The JAX package reads the
+sliver of a period at the crossing as a millisecond of its own (fault
+A, which the port mends): it slips PRN 9's bit grid and loses its
+subframe 3.  On the checks that the crossing reaches (the subframes,
+the reports' Doppler, the fixes and RAIM) the packages are held on the
+capture's twin instead: the same bytes from half a code period in, at
+whose alignment every code phase lies 1024 samples lower and none
+crosses.  The port's run on the capture itself keeps every subframe of
+its run on the twin (test_boundary_crossing_keeps_every_subframe)."""
 
 import copy
 
@@ -25,6 +36,8 @@ SEC = 30.0
 FAULT_S = 1.0e-6
 CFG = ReceiverConfig(raim=True, carrier_smoothing=64)
 CFG_OFF = ReceiverConfig(carrier_smoothing=64)
+# the checks that PRN 9's crossing of the code period boundary reaches
+CROSSED = {"subframes", "reports", "evaluator"}
 
 
 def _scenario(make, cfg):
@@ -35,19 +48,41 @@ def _scenario(make, cfg):
 
 @pytest.fixture(scope="module")
 def runs():
-    path = env.build_capture(
-        "torch_envelope_faulted_v1.bin",
-        _scenario(jax_scenario, env.jax_cfg(CFG)), CFG,
-        int(round(SEC / CFG.block_sec)), noise=0.5, scale=0.13)
+    scn = _scenario(jax_scenario, env.jax_cfg(CFG))
+    n_blocks = int(round(SEC / CFG.block_sec))
+    path = env.build_capture("torch_envelope_faulted_v1.bin", scn, CFG,
+                             n_blocks, noise=0.5, scale=0.13)
+    twin = env.build_capture("torch_envelope_faulted_half_v1.bin", scn,
+                             CFG, n_blocks, noise=0.5, scale=0.13,
+                             gap=(0, CFG.code_samples // 2))
     return {"scn": _scenario(make_scenario, CFG),
             "raim": env.run_pair(CFG, path),
-            "off": env.run_pair(CFG_OFF, path)}
+            "off": env.run_pair(CFG_OFF, path),
+            "raim_twin": env.run_pair(CFG, twin),
+            "off_twin": env.run_pair(CFG_OFF, twin)}
 
 
 @pytest.mark.parametrize("run", ["raim", "off"])
 @pytest.mark.parametrize("check", sorted(env.CHECKS))
 def test_port_matches_jax(runs, run, check):
-    env.CHECKS[check](*runs[run])
+    env.CHECKS[check](*runs[run + "_twin" if check in CROSSED else run])
+
+
+@pytest.mark.parametrize("run", ["raim", "off"])
+def test_boundary_crossing_keeps_every_subframe(runs, run):
+    """The port decodes on the capture every subframe it decodes on the
+    twin, PRN 9's subframe 3 included, nav field for nav field; the JAX
+    package loses that one (fault A)."""
+    def fields(session):
+        return {key: {k: v for k, v in f.items()
+                      if k not in env.TRANSPORT_KEYS}
+                for key, f in env.subframes(session).items()}
+
+    js, ts = runs[run]
+    got, twin = fields(ts), fields(runs[run + "_twin"][1])
+    assert got == twin
+    lost = set(twin) - set(fields(js))
+    assert lost and {key[0] for key in lost} == {9}, lost
 
 
 def test_raim_events_match_jax(runs):

@@ -35,6 +35,7 @@ import pytest
 import torch
 
 import chip_smoke
+import plain_acquisition
 from gps_sdr_tpu.ops import cacode as jcacode
 from gps_sdr_tpu.parallel import acquire_sharded as jax_acquire_sharded
 from gps_sdr_tpu.parallel import make_mesh as jax_make_mesh
@@ -154,6 +155,12 @@ def test_mesh_errors():
 @pytest.mark.parametrize("time_shards,wide", [(2, False), (4, True)],
                          ids=["product-2x4", "wide-4x2"])
 def test_acquire_sharded_matches_jax(stream8, time_shards, wide):  # noqa: F811
+    """The sharded search against JAX's, the unsharded port and the plain
+    search.  JAX ranks every Doppler bin, the port only the bins of a
+    PRN's main lobe (fault B): on a PRN that is not found the lobe is
+    noise and the two may take other bins, so there the bin and norm_max
+    are held to the unsharded port and to the plain search
+    (tests/plain_acquisition.py), which hold every PRN on them."""
     cfg, jcfg = CFG, JCFG
     if wide:
         cfg = cfg.replace(min_freq=-10000.0, max_freq=10000.0)
@@ -170,14 +177,21 @@ def test_acquire_sharded_matches_jax(stream8, time_shards, wide):  # noqa: F811
                                dop, jcacode.ca_fft_table(jcfg)[prns])
     one = acquire_impl(cfg, torch.from_numpy(block), torch.from_numpy(dop),
                        torch.from_numpy(cacode.ca_fft_table(cfg)[prns]))
-    for ref in ((np.asarray(want.found) > 0.5, np.asarray(want.delay),
-                 np.asarray(want.freq), np.asarray(want.norm_max)),
-                (one.found.numpy(), one.delay.numpy(), one.freq.numpy(),
-                 one.norm_max.numpy())):
+    jfound = np.asarray(want.found) > 0.5
+    for ref, rows in (((jfound, np.asarray(want.delay),
+                        np.asarray(want.freq), np.asarray(want.norm_max)),
+                       jfound),
+                      ((one.found.numpy(), one.delay.numpy(),
+                        one.freq.numpy(), one.norm_max.numpy()),
+                       slice(None))):
         np.testing.assert_array_equal(got.found, ref[0])
         np.testing.assert_array_equal(got.delay, ref[1])
-        np.testing.assert_array_equal(got.freq, ref[2])
-        np.testing.assert_allclose(got.norm_max, ref[3], rtol=2e-5)
+        np.testing.assert_array_equal(got.freq[rows], ref[2][rows])
+        np.testing.assert_allclose(got.norm_max[rows], ref[3][rows],
+                                   rtol=2e-5)
+    plain_acquisition.check(got, block, cacode.ca_table(cfg)[prns], dop,
+                            cfg.sample_rate, cfg.sweep_corr_avg,
+                            cfg.acq_noncoherent, cfg.corr_min)
     assert {int(p) for p in prns[got.found]} == {s.prn for s in SATS}
     # dopplers padded to the time axis by repeating bin 0: 51 bins over 2
     # shards and 101 over 4 both pad

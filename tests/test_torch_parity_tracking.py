@@ -158,9 +158,11 @@ def test_card_edge_chain_matches_jax_reference():
         chain = [np.asarray(getattr(st, f))[exact] for f in (
             "sign0", "prev_sign", "prev_signal", "ms_time")]
         for b in range(k):
+            # (the quality ring's count grows a block each)
             means, starts, mask, n_valid, carry_sum, carry_cnt = \
-                ttrk._means_from_sums(head[:, b], seg[:, b], wipe[:, b],
-                                      carry_sum, carry_cnt, cfg)
+                ttrk._means_from_sums(
+                    head[:, b], seg[:, b], wipe[:, b], carry_sum, carry_cnt,
+                    ttrk._continues(carry_cnt, st.corr_cnt + b), cfg)
             gate = cfg.edge_sigma * std
             ref = _seq(*[jnp.asarray(x) for x in (
                 means.numpy()[exact], starts.numpy()[exact],
