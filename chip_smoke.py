@@ -20,6 +20,8 @@ Phases (any failure raises and the script exits non-zero):
      (cheap_case) at the product and the small configuration, with the
      kernel's input state checked unchanged (the kernel takes n_cyc + 1
      <= 128 slots, n_cyc 8 to 64: phase 10e runs these checks at 64);
+     3b. the packed-IQ unpack kernel (csrc/unpack.cu) against the host's
+     table bit for bit on all 65,536 words and a product chunk, timed;
   4. the replay slice: the examples/synthetic_fix.py default scenario
      (6 satellites, seed 3, noise 0.5, 40 s of IQ synthesized on the
      host) through the port's Session.run_source on the card; the
@@ -408,6 +410,33 @@ def _bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_ops = n_ops / H100_F32_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_unpack(cfg, dev) -> dict:
+    """The packed-IQ unpack kernel (csrc/unpack.cu) against the host's
+    table bit for bit: all 65,536 words, then a chunk of no_sec random
+    blocks of words, timed (median device ms) beside its bound: 2 bytes
+    read and 8 written a sample."""
+    import numpy as np
+    import torch
+
+    from gps_sdr_tpu_torch.ops.hopper_unpack import unpack_iq8
+    from gps_sdr_tpu_torch.runtime.sources import unpack_iq_numpy
+
+    words = np.random.default_rng(7).integers(
+        0, 1 << 16, (cfg.no_sec, cfg.ngps), dtype=np.uint16)
+    out = {}
+    for tag, w in (("all_words", np.arange(1 << 16, dtype=np.uint16)),
+                   ("chunk", words)):
+        t = torch.from_numpy(w).view(torch.int16).to(dev)
+        got = unpack_iq8(t).cpu().numpy().view(np.uint32)
+        if not np.array_equal(got, unpack_iq_numpy(w).view(np.uint32)):
+            raise AssertionError(f"[3b] unpack kernel differs from the "
+                                 f"table on {tag}")
+    bound, _ = _bound(10 * words.size, 0)
+    out.update(bit_identical=True, chunk_words=int(words.size),
+               ms=time_ms(lambda: unpack_iq8(t)), bound_ms=bound)
+    return out
 
 
 def wipeoff_bound(cfg, wipe) -> tuple[float, str]:
@@ -2380,7 +2409,7 @@ def run_host_slice(cfg, scn, blocks, device: str = "cuda",
       d. `live --max-sec 12` with a stand-in rtlsdr reading the capture's
          blocks: rc 0, the scenario's PRNs, kernel 1 and cheap on every
          K-step, and its --record-iq capture read back by replay_blocks
-         to the same blocks.
+         and unpacked to the same blocks.
     No child process outlives a failure.  `device` is the receivers'
     (the CPU runs the plain path, which counts no launches); build_s,
     phase 1's seconds to build the kernels and the host libraries
@@ -2516,7 +2545,9 @@ def run_host_slice(cfg, scn, blocks, device: str = "cuda",
                                "--record-iq", rec_iq, "--record-epochs",
                                ep_live])
         launches_live = _read_launches()
-        sources_blocks = list(replay_blocks(rec_iq, cfg))
+        # replay_blocks yields the packed words: unpacked, the blocks
+        sources_blocks = [_native.unpack_iq(w)
+                          for w in replay_blocks(rec_iq, cfg)]
         same = len(sources_blocks) == n_live and all(
             np.array_equal(a, b) for a, b in zip(sources_blocks, live))
         log(f"[10d] live with a stand-in rtlsdr, {LIVE_SEC:.0f} s: rc {rc}, "
@@ -5584,6 +5615,9 @@ def main() -> int:
     for tag, c3, n3 in (("product", cfg, cfg.max_sat), ("small", small, 4)):
         cc = check_cheap_case(c3, n3, 3, dev)
         log(f"[3] cheap kernel, crafted case, {tag}: {json.dumps(cc)}")
+
+    # 3b. the packed-IQ unpack kernel vs the table
+    log(f"[3b] unpack kernel vs table: {json.dumps(check_unpack(cfg, dev))}")
 
     # 4. the replay slice
     sl = run_slice(cfg)

@@ -614,9 +614,9 @@ def serve_source(args, cfg: ReceiverConfig, start: int, device):
     `serve` source on `device` from stream block `start` on, built with
     `cfg`.  A synthetic scenario is synthesized on the device
     (DeviceScenarioSynth.chunk_planar); a .bin capture is read from
-    block `start` and laid out grouped planar on the device."""
-    import torch
-
+    block `start`, its packed words unpacked on the device and laid out
+    grouped planar there."""
+    from gps_sdr_tpu_torch.ops import dsp
     from gps_sdr_tpu_torch.ops.tracking import to_grouped_planar
 
     t = cfg.no_sec
@@ -640,8 +640,8 @@ def serve_source(args, cfg: ReceiverConfig, start: int, device):
     n_chunks = len(blocks) // t
     if not n_chunks:
         return None, 0, None
-    buf = to_grouped_planar(cfg, torch.as_tensor(
-        np.stack(blocks[:n_chunks * t])).to(device))
+    buf = to_grouped_planar(cfg, dsp.host_iq(np.stack(blocks[:n_chunks * t]),
+                                             device))
     del blocks
     return (lambda first, n: buf[first:first + n]), n_chunks, None
 

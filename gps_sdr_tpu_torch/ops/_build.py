@@ -78,10 +78,17 @@ class CheapArgs(ctypes.Structure):
             "lock_threshold", "max_df", "phase_jump", "t_blk")]
 
 
+class UnpackArgs(ctypes.Structure):
+    """csrc/unpack.cu struct UnpackArgs."""
+
+    _fields_ = [("words", _P), ("out", _P), ("n", ctypes.c_longlong)]
+
+
 # source name -> (C entry, its argument struct)
 ENTRIES = {"wipeoff": ("gsdr_wipeoff_launch", WipeoffArgs),
            "wipeoff_vpu": ("gsdr_wipeoff_vpu_launch", WipeoffVpuArgs),
-           "cheap": ("gsdr_cheap_launch", CheapArgs)}
+           "cheap": ("gsdr_cheap_launch", CheapArgs),
+           "unpack": ("gsdr_unpack_launch", UnpackArgs)}
 
 
 def nvcc() -> str:

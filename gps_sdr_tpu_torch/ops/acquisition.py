@@ -147,7 +147,8 @@ def acquire_all(cfg: ReceiverConfig, block, code_fft_table: np.ndarray,
                 prns=None, dopplers=None, device="cuda"
                 ) -> list[tuple[float, int, float, int]]:
     """Acquire `prns` (default: the full search list) on one host block
-    and return the found satellites sorted by correlation strength, as
+    (complex64, or a capture's packed words: dsp.host_iq) and return
+    the found satellites sorted by correlation strength, as
     (norm_max, prn, freq, delay) tuples.  `dopplers` overrides the
     config's search bins (almanac warm start).  With cfg.cw_excision > 0
     the block's narrowband interference is nulled before the grid
@@ -157,7 +158,7 @@ def acquire_all(cfg: ReceiverConfig, block, code_fft_table: np.ndarray,
         prns = list(cfg.prns if prns is None else prns)
         if dopplers is None:
             dopplers = cfg.doppler_bins
-        blk = torch.as_tensor(np.asarray(block, np.complex64), device=dev)
+        blk = dsp.host_iq(block, dev)
         if cfg.cw_excision > 0:
             blk = excise_cw_block(blk, cfg.cw_excision)
         ffts = torch.as_tensor(

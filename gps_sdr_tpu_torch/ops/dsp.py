@@ -21,15 +21,22 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+from gps_sdr_tpu_torch.ops import hopper_unpack
 
 TWO_PI = 2.0 * math.pi
 
 
 def as_complex_input(x: torch.Tensor) -> torch.Tensor:
     """Accept complex64[...], f32[..., 2] re/im pairs, f32[..., 2, N]
-    planar re/im or grouped planar f32[..., 2, n_cyc, cs]; return
-    complex64 (the grouped periods merged into one axis)."""
+    planar re/im, grouped planar f32[..., 2, n_cyc, cs] or the capture's
+    packed words uint16[...] (or their int16 view, unpacked on the
+    tensor's device by ops/hopper_unpack.py); return complex64 (the
+    grouped periods merged into one axis)."""
+    if x.dtype in hopper_unpack.PACKED_DTYPES:
+        return hopper_unpack.unpack_iq8(x)
     if x.is_complex():
         return x.to(torch.complex64)
     if x.shape[-1] == 2:
@@ -42,11 +49,30 @@ def as_complex_input(x: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"not an IQ layout: {x.dtype}{tuple(x.shape)}")
 
 
+def host_iq(block, device) -> torch.Tensor:
+    """A host block or chunk as complex64 on `device`: packed words
+    (uint16 or int16) cross as they are, 2 bytes a sample, and are
+    unpacked there; a tensor in any layout as_complex_input takes moves
+    as it is; anything else crosses as complex64."""
+    if isinstance(block, torch.Tensor):
+        return as_complex_input(block.to(device))
+    a = np.asarray(block)
+    if is_packed_words(a):
+        return as_complex_input(torch.from_numpy(
+            np.ascontiguousarray(a).view(np.int16)).to(device))
+    return torch.as_tensor(np.asarray(a, np.complex64), device=device)
+
+
+def is_packed_words(block) -> bool:
+    """True for a host block or chunk of the capture's packed words."""
+    return np.asarray(block).dtype in (np.uint16, np.int16)
+
+
 def is_grouped_iq(cfg, x: torch.Tensor) -> bool:
     """True for the grouped planar f32[..., 2, n_cyc, cs] IQ layout (the
     shape test is exact against the config, so a flat [T=2, 2, ngps]
     chunk is never taken for grouped)."""
-    return (not x.is_complex() and x.ndim >= 3
+    return (x.is_floating_point() and x.ndim >= 3
             and tuple(x.shape[-3:]) == (2, cfg.n_cyc, cfg.code_samples))
 
 

@@ -42,6 +42,7 @@ from gps_sdr_tpu_torch.config import GPS_C, OMEGA_EARTH
 from gps_sdr_tpu_torch.device import resolve_device
 from gps_sdr_tpu_torch.models import orbits
 from gps_sdr_tpu_torch.models.pseudorange import EPHEM_KEYS
+from gps_sdr_tpu_torch.ops import dsp
 from gps_sdr_tpu_torch.ops.acquisition import acquire_impl
 from gps_sdr_tpu_torch.utils.geodesy import WGS84_A, WGS84_F
 
@@ -212,7 +213,8 @@ def snapshot_fix(cfg, block, code_fft_table, ephs_by_prn: dict,
     """One-block acquisition -> snapshot fix.
 
     Runs the full-grid acquisition (ops/acquisition.py acquire_impl, not
-    excised) on `block` (host complex64[ngps] or a tensor) on `device`,
+    excised) on `block` (host complex64[ngps], a capture's packed words
+    or a tensor in any IQ layout: dsp.host_iq) on `device`,
     keeps found PRNs that have an ephemeris in `ephs_by_prn`, converts
     the sub-sample code phases to fractional milliseconds, and solves.
     """
@@ -220,8 +222,7 @@ def snapshot_fix(cfg, block, code_fft_table, ephs_by_prn: dict,
     prns = list(cfg.prns if prns is None else prns)
     if dopplers is None:
         dopplers = cfg.doppler_bins
-    blk = (block.to(dev) if isinstance(block, torch.Tensor) else
-           torch.as_tensor(np.asarray(block, np.complex64), device=dev))
+    blk = dsp.host_iq(block, dev)
     res = acquire_impl(
         cfg, blk,
         torch.as_tensor(np.asarray(dopplers, np.float32), device=dev),

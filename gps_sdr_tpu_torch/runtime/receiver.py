@@ -5,8 +5,11 @@ channel lifecycle, chunked tracking on the device, nav-bit assembly,
 the re-acquisition service and epoch emission.  Two loops:
 
   * run(): host blocks are batched into chunks of `no_sec` blocks
-    (~1 s) and uploaded as complex64 [T, ngps]; stream gaps are applied
-    at chunk boundaries and detected on the device (erase semantics);
+    (~1 s) and uploaded: a capture's packed words (sources.replay_blocks)
+    as they are, through a pinned staging buffer, and unpacked on the
+    device; complex64 blocks as complex64 [T, ngps]; stream gaps are
+    applied at chunk boundaries and detected on the device (erase
+    semantics);
   * run_device(): device-resident streaming.  A chunk provider hands
     out chunks that already live on the device (models/scenario_dev.py,
     grouped planar); whole download windows of chunks are tracked and
@@ -24,7 +27,7 @@ import torch
 
 from gps_sdr_tpu_torch.config import ReceiverConfig
 from gps_sdr_tpu_torch.models.navmsg import NavDecoder
-from gps_sdr_tpu_torch.ops import cacode
+from gps_sdr_tpu_torch.ops import cacode, dsp
 from gps_sdr_tpu_torch.runtime.channelmgr import SlotTable, select_sats
 from gps_sdr_tpu_torch.runtime.evaluator import EpochInput
 from gps_sdr_tpu_torch.utils.cplist import CodePhaseList
@@ -78,6 +81,8 @@ class Receiver:
         self.found_sats: list = []
         self.warm_hints: tuple | None = None   # (prns, doppler_bins)
         self._last_cp: dict = {}           # slot -> last code phase seen
+        self._stage = None                 # pinned packed-word buffer
+        self._staged = None                # event: its last copy is done
 
     # -- control surface
     def request_sweep(self) -> None:
@@ -182,8 +187,9 @@ class Receiver:
     def run(self, block_iter, skip_iter=None):
         """Consume NGPS-sample blocks; yield EpochInput once per chunk.
 
-        block_iter yields complex64[ngps]; skip_iter (optional) yields the
-        number of blocks dropped before each block."""
+        block_iter yields complex64[ngps] blocks, or a capture's packed
+        uint16[ngps] words (sources.replay_blocks); skip_iter (optional)
+        yields the number of blocks dropped before each block."""
         t = self.cfg.no_sec
         chunk: list[np.ndarray] = []
         skipped_before_chunk = 0
@@ -224,18 +230,14 @@ class Receiver:
     def _dispatch_chunk(self, chunk):
         """Enqueue one chunk's tracking; returns the device outputs and
         the chunk's first stream number.  `chunk` is a list of host
-        blocks (uploaded as complex64) or a _DeviceChunk (already on the
-        device, in any layout track_chunk_batched_impl takes)."""
+        blocks (see _upload) or a _DeviceChunk (already on the device,
+        in any layout track_chunk_batched_impl takes)."""
         cfg = self.cfg
         stream0 = self.status.stream_no + 1
         if isinstance(chunk, _DeviceChunk):
             blocks = chunk.blocks_dev
         else:
-            with span("rx.upload"):
-                blocks = torch.as_tensor(
-                    np.stack(chunk).astype(np.complex64, copy=False),
-                    device=self.device)
-            count("rx.upload_bytes", blocks.numel() * blocks.element_size())
+            blocks = self._upload(chunk)
         if cfg.blocks_per_step > 1:
             self.states, outs = track_chunk_batched_impl(
                 cfg, self.states, blocks, stream0, self._codes_dev,
@@ -250,6 +252,50 @@ class Receiver:
         self.status.blocks_processed += nb
         count("rx.blocks", nb)
         return outs, stream0
+
+    def _upload(self, chunk: list) -> torch.Tensor:
+        """A chunk of host blocks on the device as complex64 [T, ngps].
+        A capture's packed words (uint16 or int16 blocks) cross as they
+        are, 2 bytes a sample, and are unpacked on the device: on a card
+        they are stacked into a pinned buffer kept across chunks and
+        copied without blocking, and the next chunk's stack first waits
+        for that copy.  Other blocks cross as complex64.  A chunk of
+        both kinds is an error."""
+        packed = [dsp.is_packed_words(b) for b in chunk]
+        if any(packed) and not all(packed):
+            raise ValueError("a chunk mixes packed IQ words with other "
+                             "blocks")
+        with span("rx.upload"):
+            if packed[0] and self.device.type == "cuda":
+                blocks = dsp.as_complex_input(self._pinned_copy(chunk))
+            else:
+                blocks = dsp.host_iq(np.stack(chunk), self.device)
+        if packed[0]:
+            count("rx.upload_bytes", 2 * blocks.numel())
+            count("rx.packed_blocks", len(chunk))
+        else:
+            count("rx.upload_bytes", 8 * blocks.numel())
+        return blocks
+
+    def _pinned_copy(self, chunk: list) -> torch.Tensor:
+        """The chunk's packed words stacked into the pinned staging
+        buffer and copied to the card without blocking; the copy's event
+        guards the buffer until the next chunk's stack."""
+        n, shape = len(chunk), np.shape(chunk[0])
+        if (self._stage is None or self._stage.shape[0] < n
+                or tuple(self._stage.shape[1:]) != shape):
+            self._stage = torch.empty((n,) + shape, dtype=torch.int16,
+                                      pin_memory=True)
+            self._staged = None
+        if self._staged is not None:
+            self._staged.synchronize()
+        host = self._stage[:n]
+        np.stack([np.asarray(b).view(np.uint16) for b in chunk],
+                 out=host.numpy().view(np.uint16))
+        words = host.to(self.device, non_blocking=True)
+        self._staged = torch.cuda.Event()
+        self._staged.record(torch.cuda.current_stream(self.device))
+        return words
 
     def _k_steps(self, n_blocks: int) -> int:
         """Fused K-block steps that tracking a chunk of n_blocks runs."""

@@ -6,11 +6,15 @@ reference's: interleaved 8-bit I/Q packed as uint16 little-endian words
 with value = 256*Q + I, normalized to complex64 via v/127.5 - (1+1j)
 (gpsrecv.py:168-172), so recorded captures replay bit-identically.
 
-The uint16 -> complex64 unpack is the only byte-crunching on the host
-data path: the port's copy of csrc/ingest.cpp (runtime/_native.py,
-built at first use) does it, with the numpy version beside it as the
-reference (unpack_iq_numpy).  replay_decimated runs the port's digital
-front end (ops/frontend.py) on `device`.
+replay_blocks yields the words as the file holds them: the host-fed
+receiver uploads them as they are, 2 bytes a sample, and unpacks them on
+the device (ops/hopper_unpack.py), and every other consumer of a block
+takes the packed layout too (ops/dsp.py as_complex_input, host_iq).  On
+the host, the port's copy of csrc/ingest.cpp (runtime/_native.py, built
+at first use) unpacks, with the numpy version beside it as the reference
+(unpack_iq_numpy): recording, replay_decimated's front end input and the
+checks.  replay_decimated runs the port's digital front end
+(ops/frontend.py) on `device`.
 """
 
 from __future__ import annotations
@@ -52,8 +56,9 @@ def pack_iq(samples: np.ndarray) -> np.ndarray:
 def replay_blocks(path: str, cfg: ReceiverConfig,
                   start_stream: int = 0,
                   max_blocks: int | None = None) -> Iterator[np.ndarray]:
-    """Stream NGPS-sample complex64 blocks from a recorded capture
-    (streamData, gpsrecv.py:153-186; START_STREAM skip supported)."""
+    """Stream a recorded capture's blocks as their NGPS packed uint16
+    words, 256*Q + I (streamData, gpsrecv.py:153-186; START_STREAM skip
+    supported); unpack_iq gives a block's complex64 samples."""
     n = 0
     with open(path, "rb") as f:
         if start_stream:
@@ -61,10 +66,9 @@ def replay_blocks(path: str, cfg: ReceiverConfig,
         while max_blocks is None or n < max_blocks:
             with span("source.read"):
                 words = np.fromfile(f, dtype=np.uint16, count=cfg.ngps)
-                if words.size != cfg.ngps:
-                    return  # EOF
-                blk = unpack_iq(words)
-            yield blk
+            if words.size != cfg.ngps:
+                return  # EOF
+            yield words
             n += 1
 
 

@@ -201,7 +201,8 @@ def test_live_through_a_stand_in_rtlsdr(tmp_path, capture_blocks):
         42.0, cfg.sample_rate, 1575.42e6)
     recs = io.load_epoch_records(str(rec))
     assert sorted({p for r in recs for p, v in r[2].items() if v}) == [5, 12]
-    back = np.stack(list(replay_blocks(str(rec_iq), cfg)))
+    # replay_blocks yields the packed words: unpacked, the same blocks
+    back = unpack_iq(np.stack(list(replay_blocks(str(rec_iq), cfg))))
     np.testing.assert_array_equal(back, blocks)
 
 

@@ -394,12 +394,15 @@ def test_capture_replay_roundtrip(tmp_path):
                 src.pack_iq(b).tofile(f)
         paths.append(path)
     assert paths[0].read_bytes() == paths[1].read_bytes()
-    got = np.stack(list(sources.replay_blocks(str(paths[1]), cfg)))
+    # the port's replay yields the packed words; unpacked, the JAX blocks
+    got = sources.unpack_iq(np.stack(list(sources.replay_blocks(
+        str(paths[1]), cfg))))
     np.testing.assert_array_equal(got, np.stack(list(jsrc.replay_blocks(
         str(paths[0]), _jax(cfg)))))
     assert got.shape == blocks.shape
     assert np.abs(got - blocks).max() <= 1.0 / 127.5
-    skip = list(sources.replay_blocks(str(paths[1]), cfg, start_stream=2))
+    skip = [sources.unpack_iq(w) for w in sources.replay_blocks(
+        str(paths[1]), cfg, start_stream=2)]
     jskip = list(jsrc.replay_blocks(str(paths[0]), _jax(cfg),
                                     start_stream=2))
     assert len(skip) == len(jskip) == 2

@@ -49,7 +49,7 @@ SATS = [SatSignal(prn=5, doppler=987.0, code_delay=77.25,
 N_BLOCKS = 1 + CFG.no_sec + 6
 READERS = ("source_ms_per_s", "upload_gbps", "kstep_enqueue_us",
            "download_wait_ms_per_s", "nav_ms_per_s", "acq_ms_per_sweep",
-           "chunk_p95_ms", "loop_self_ms_per_s")
+           "chunk_p95_ms", "loop_self_ms_per_s", "packed_upload_share")
 PERF_KEYS = ("dispatch", "pack", "stack", "transfer", "unpack", "consume")
 
 
@@ -202,7 +202,9 @@ def test_session_records_every_span_the_readers_read(session_run):
     assert counts["rx.blocks"] == st.blocks_processed - 1  # cold sweep's
     assert spans["track.kstep"]["count"] == st.k_steps
     assert spans["track.block"]["count"] == 2
-    assert counts["rx.upload_bytes"] == counts["rx.blocks"] * CFG.ngps * 8
+    # a capture's packed words cross as they are: 2 bytes a sample
+    assert counts["rx.upload_bytes"] == counts["rx.blocks"] * CFG.ngps * 2
+    assert counts["rx.packed_blocks"] == counts["rx.blocks"]
     assert spans["source.read"]["count"] == N_BLOCKS + 1    # and the EOF
     assert spans["rx.chunk"]["count"] == 2
     assert spans["eval.process"]["count"] == 2
