@@ -1362,7 +1362,7 @@ def run_serving_slice(base_cfg, n_streams: int = 8) -> dict:
 
     cfg = base_cfg.replace(chunks_per_download=16,
                            download_windows_in_flight=4,
-                           defer_subframe_poll=True, epoch_per_window=True)
+                           epoch_per_window=True)
     scn = make_scenario(cfg, n_sats=N_SATS, seed=SEED,
                         duration_sec=SLICE_SEC + 12.0)
     synth = DeviceScenarioSynth(scn, noise_std=NOISE, knot_interp_step=0.1,
@@ -1413,7 +1413,7 @@ def run_independent_slice(base_cfg, seeds=(3, 5, 7)) -> dict:
 
     cfg = base_cfg.replace(use_mxu_wipeoff=False, chunks_per_download=8,
                            download_windows_in_flight=4,
-                           defer_subframe_poll=True, epoch_per_window=True)
+                           epoch_per_window=True)
     scns = [make_scenario(cfg, n_sats=N_SATS, seed=sd,
                           duration_sec=SLICE_SEC + 12.0) for sd in seeds]
     synths = [DeviceScenarioSynth(sc, noise_std=NOISE, knot_interp_step=0.1,
@@ -2965,10 +2965,10 @@ def run_sharded_serving(base_cfg, ref7b, ref7c) -> dict:
     out = {}
     cfg7b = base_cfg.replace(chunks_per_download=16,
                              download_windows_in_flight=4,
-                             defer_subframe_poll=True, epoch_per_window=True)
+                             epoch_per_window=True)
     cfg7c = base_cfg.replace(use_mxu_wipeoff=False, chunks_per_download=8,
                              download_windows_in_flight=4,
-                             defer_subframe_poll=True, epoch_per_window=True)
+                             epoch_per_window=True)
     t = base_cfg.no_sec
     n_chunks = int(round(SLICE_SEC / base_cfg.block_sec)) // t
     sig_sec = n_chunks * t * base_cfg.block_sec

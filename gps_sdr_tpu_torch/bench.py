@@ -522,8 +522,7 @@ def bench_fullloop(cfg: ReceiverConfig, dev, fl_sec: float) -> dict:
     w_fl = min(16, max(1, n_chunks // 2))
     warm_fl = min(w_fl, n_chunks - 1)
     cfg_fl = cfg.replace(download_windows_in_flight=4,
-                         chunks_per_download=w_fl, defer_subframe_poll=True,
-                         epoch_per_window=True)
+                         chunks_per_download=w_fl, epoch_per_window=True)
     sig_fl = (n_chunks - warm_fl) * t_fl * cfg.block_sec
     rtfs = []
     for _ in range(3):
@@ -636,8 +635,7 @@ def bench_serving(cfg: ReceiverConfig, dev, sv_sec: float, n_sv: int,
     if w_sv is None:
         w_sv = min(16, max(1, n_chunks // 2))
     cfg_sv = cfg.replace(download_windows_in_flight=4,
-                         chunks_per_download=w_sv, defer_subframe_poll=True,
-                         epoch_per_window=True)
+                         chunks_per_download=w_sv, epoch_per_window=True)
     wall, sig, evs, perf = serve_once(cfg_sv, n_sv, buf, n_chunks, dev)
     out = {"serving_stage_sec": {k: round(v, 3) for k, v in perf.items()
                                  if not k.startswith("dev_")}}

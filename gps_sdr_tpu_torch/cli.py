@@ -201,7 +201,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="resume all streams from a save-state "
                         "checkpoint")
     p.add_argument("--windows", type=int, default=16,
-                   help="chunks per fused download window")
+                   help="chunks per download window")
 
     p = sub.add_parser("snapshot", help="coarse-time snapshot fix from "
                        "one block of a capture — no nav decode; needs "
@@ -572,13 +572,13 @@ def run_snapshot(args) -> int:
 
 
 def serve_config(args) -> ReceiverConfig:
-    """The serving configuration: fused windows of --windows chunks, 4
+    """The serving configuration: download windows of --windows chunks, 4
     windows in flight, subframes polled once a window, one epoch a
     window."""
     kw = dict(n_cyc=args.n_cyc, max_sat=args.max_sat,
               chunks_per_download=args.windows,
               download_windows_in_flight=4,
-              defer_subframe_poll=True, epoch_per_window=True)
+              epoch_per_window=True)
     if args.conf_height is not None:
         kw.update(conf_height=True, height=args.conf_height)
     if args.carrier_smoothing:

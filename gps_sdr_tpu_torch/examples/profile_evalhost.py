@@ -46,7 +46,7 @@ def serving_config(cfg, n_chunks: int):
     epoch a window."""
     w = min(16, max(1, n_chunks // 2))
     return cfg.replace(download_windows_in_flight=4, chunks_per_download=w,
-                       defer_subframe_poll=True, epoch_per_window=True)
+                       epoch_per_window=True)
 
 
 def capture(cfg_sv, provider, n_chunks: int, streams: int, dev) -> list:

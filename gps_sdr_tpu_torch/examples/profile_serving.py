@@ -25,8 +25,7 @@ import time
 def serving_config(cfg, wif: int):
     """profile_serving.py's settings on cfg."""
     return cfg.replace(download_windows_in_flight=wif,
-                       chunks_per_download=16, defer_subframe_poll=True,
-                       epoch_per_window=True)
+                       chunks_per_download=16, epoch_per_window=True)
 
 
 def profile_serving(cfg, provider, n_chunks: int, streams: int,

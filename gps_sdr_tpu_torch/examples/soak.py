@@ -57,8 +57,7 @@ def soak_config(k: int, n_streams: int):
                           track_filter_q=0.5 if n_streams == 1 else 0.0,
                           raim=n_streams == 1,
                           download_windows_in_flight=2,
-                          chunks_per_download=16, defer_subframe_poll=True,
-                          epoch_per_window=True)
+                          chunks_per_download=16, epoch_per_window=True)
 
 
 def run_streams(cfg, synth, n_chunks: int, n_streams: int, device,

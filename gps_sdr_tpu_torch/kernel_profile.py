@@ -750,7 +750,7 @@ def profile_serving_slice(cfg, dev, n_streams: int = 8,
     from gps_sdr_tpu_torch.runtime.serving import StreamServer
 
     cfg = cfg.replace(chunks_per_download=16, download_windows_in_flight=4,
-                      defer_subframe_poll=True, epoch_per_window=True)
+                      epoch_per_window=True)
     scn = make_scenario(cfg, n_sats=N_SATS, seed=SEED,
                         duration_sec=sec + 12.0)
     synth = DeviceScenarioSynth(scn, noise_std=NOISE, knot_interp_step=0.1,

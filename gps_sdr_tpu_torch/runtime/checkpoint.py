@@ -86,6 +86,9 @@ def _load(path: str) -> dict:
     if p.get("version") != FORMAT_VERSION:
         raise ValueError(f"unknown checkpoint version {p.get('version')!r} "
                          f"(this package reads {FORMAT_VERSION})")
+    # a config pickled before a field left ReceiverConfig still holds
+    # it: rebuilt, it keeps only today's fields
+    p["cfg"] = p["cfg"].replace()
     return p
 
 

@@ -12,10 +12,10 @@ the re-acquisition service and epoch emission.  Two loops:
     semantics);
   * run_device(): device-resident streaming.  A chunk provider hands
     out chunks that already live on the device (models/scenario_dev.py,
-    grouped planar); whole download windows of chunks are tracked and
-    packed to the compact transport on the device (fused windows, or
-    one chunk at a time), and one copy per window into a pinned host
-    buffer, waited on by a CUDA event, brings the results to the host.
+    grouped planar); each download window of chunks is tracked and
+    packed to the compact transport on the device by one call, and one
+    copy per window into a pinned host buffer, waited on by a CUDA
+    event, brings the results to the host.
 """
 
 from __future__ import annotations
@@ -38,11 +38,9 @@ from gps_sdr_tpu_torch.ops.tracking import (_LAST_IDX, ChannelOut,
                                             cn0_from_amp,
                                             init_channel_states,
                                             outs_to_numpy,
-                                            pack_outs_compact,
                                             reset_channel,
                                             summarize_states,
                                             track_chunk_batched_impl,
-                                            track_chunk_impl,
                                             track_window_impl,
                                             unpack_outs_compact,
                                             unpack_window_compact)
@@ -238,14 +236,9 @@ class Receiver:
             blocks = chunk.blocks_dev
         else:
             blocks = self._upload(chunk)
-        if cfg.blocks_per_step > 1:
-            self.states, outs = track_chunk_batched_impl(
-                cfg, self.states, blocks, stream0, self._codes_dev,
-                self._ffts_dev)
-        else:
-            self.states, outs = track_chunk_impl(
-                cfg, self.states, blocks, stream0, self._codes_dev,
-                self._ffts_dev)
+        self.states, outs = track_chunk_batched_impl(
+            cfg, self.states, blocks, stream0, self._codes_dev,
+            self._ffts_dev)
         nb = len(chunk)
         self.status.k_steps += self._k_steps(nb)
         self.status.stream_no += nb
@@ -303,18 +296,15 @@ class Receiver:
         return n_blocks // k if k > 1 else 0
 
     def _consume_chunk(self, chunk, outs_dev: ChannelOut, stream0: int,
-                       skipped: int, poll: bool = True,
-                       window: bool = False, dropped: int = 0):
+                       skipped: int, window: bool = False, dropped: int = 0):
         """One chunk's (or, with window=True, one concatenated download
         window's) tracking outputs -> EpochInput (host side).
 
         outs_dev holds tensors, or numpy arrays (unpack_outs_compact,
-        which dropped `dropped` edges over its cap).  poll=False leaves
-        the subframes in the decoders (cfg.defer_subframe_poll).
-        window=True widens the last-block gates to the whole window:
-        subframes poll if the channel was locked at ANY block, and a
-        sweep request raised at ANY block is served."""
-        cfg = self.cfg
+        which dropped `dropped` edges over its cap).  window=True widens
+        the last-block gates to the whole window: subframes poll if the
+        channel was locked at ANY block, and a sweep request raised at
+        ANY block is served."""
         if isinstance(outs_dev.code_phase, np.ndarray):
             outs = outs_dev
         else:
@@ -322,162 +312,134 @@ class Receiver:
                 outs = outs_to_numpy(outs_dev)
         with span("rx.nav"):
             self._note_dropped(dropped)
-            coph: dict = {}
-            cfrq: dict = {}
-            wraps = 0
-            for slot, prn in enumerate(self.slots.slot_prn):
-                if prn == 0:
-                    continue
+            for slot, _ in self._live():
                 self.decoders[slot].push_chunk(
                     outs.sign0[:, slot], outs.edge_ms[:, slot],
                     outs.edge_local[:, slot], outs.edge_valid[:, slot],
                     stream_no0=stream0, erased=outs.erased[:, slot])
-                cp = outs.code_phase[:, slot]
-                ok = np.nonzero(cp >= 0)[0]
-                wraps += self._delay_wraps(slot, cp[ok])
-                if ok.size:
-                    snos = stream0 + ok
-                    coph[prn] = CodePhaseList(snos, cp[ok])
-                    if cfg.carrier_smoothing > 0:
-                        cfrq[prn] = CodePhaseList(snos, outs.freq[ok, slot])
-                self.corr_quality[prn] = (float(outs.corr_q[-1, slot]),
-                                          float(outs.corr_l[-1, slot]))
+            gate = (lambda x: x.any(axis=0)) if window else (lambda x: x[-1])
+            epoch = self._epoch(
+                stream0, skipped, outs.code_phase, outs.freq,
+                {k: getattr(outs, k)[-1] for k in _LAST_IDX},
+                gate(outs.locked))
+            req_flags = gate(outs.sweep_request)
+        self._serve_requests(chunk, req_flags, epoch.frames)
+        return epoch
 
-            frames: list = []
-            for slot, prn in enumerate(self.slots.slot_prn):
-                if prn == 0:
-                    continue
-                was_locked = (bool(outs.locked[:, slot].any()) if window
-                              else bool(outs.locked[-1, slot]))
-                subs = (self.decoders[slot].poll_subframes()
-                        if poll and was_locked else [])
-                if not subs:
-                    subs = [{}]
-                for sf in subs:
-                    sf["SAT"] = prn
-                    sf["AMP"] = float(outs.amplitude[-1, slot])
-                    sf["CN0"] = float(cn0_from_amp(outs.amplitude[-1, slot]))
-                    sf["CRM"] = float(outs.norm_max[-1, slot])
-                    sf["FRQ"] = float(outs.freq[-1, slot])
-                    sf["SWP"] = False
-                frames += subs
-
-            # per-channel sweep requests raised on the chunk's last block
-            # (window mode: on any block)
-            req_flags = (outs.sweep_request.any(axis=0) if window
-                         else outs.sweep_request[-1])
-            count("track.delay_wraps", wraps)
-        self._serve_requests(chunk, req_flags, frames)
-        return EpochInput(skipped_samples=skipped * cfg.ngps,
-                          frames=frames, code_phases=coph,
-                          carrier_freqs=cfrq or None)
-
-    def _serve_requests(self, chunk, req_flags, frames: list) -> None:
-        """Serve the sweep requests of the slots flagged in req_flags on
-        the chunk's last block, and mark the swept satellites' frames."""
-        req = [s for s in range(self.cfg.max_sat)
-               if req_flags[s] and self.slots.slot_prn[s] != 0]
-        if req:
-            swept = self._serve_channel_sweeps(np.asarray(chunk[-1]), req)
-            swept_prns = {self.slots.slot_prn[s] for s in swept}
-            for sf in frames:
-                if sf.get("SAT") in swept_prns:
-                    sf["SWP"] = True
-
-    def _consume_window_compact(self, chunk, cw, stream0: int, t: int,
-                                poll: bool = True) -> EpochInput:
+    def _consume_window_compact(self, chunk, cw, stream0: int,
+                                t: int) -> EpochInput:
         """Window-mode consume straight from a CompactWindow (the sparse
         transport view, ops/tracking.py unpack_window_compact), without
         the dense-plane scatter: epoch for epoch identical to
         _consume_chunk(concat_outs(...), window=True).  `chunk` is the
         window's last chunk (sweep service)."""
         with span("rx.nav"):
-            cfg = self.cfg
-            sl = self._edge_sl
-            w = cw.last.shape[0]
-            li = _LAST_IDX
             self._note_dropped(int(cw.dropped.sum()))
+            for slot, _ in self._live():
+                self._push_window(self.decoders[slot], cw, slot, stream0, t)
 
-            coph: dict = {}
-            cfrq: dict = {}
-            wraps = 0
-            for slot, prn in enumerate(self.slots.slot_prn):
-                if prn == 0:
-                    continue
-                aux = cw.aux[:, slot]
-                dec = self.decoders[slot]
-                pos = cw.edge_pos[:, slot]                     # [w, cap]
-                valid = pos >= 0
-                if (aux >= 4).any():
-                    # rare (slot reset mid-window): rebuild this channel's
-                    # dense planes and take the exact per-block erase path
-                    n = w * t
-                    ms_d = np.zeros((n, sl), np.int32)
-                    loc_d = np.zeros((n, sl), np.int32)
-                    val_d = np.zeros((n, sl), bool)
-                    wk, ek = np.nonzero(valid)
-                    if wk.size:
-                        fp = pos[wk, ek]
-                        tb = wk * t + fp // sl
-                        es = fp % sl
-                        ms_d[tb, es] = cw.edge_ms[:, slot][wk, ek]
-                        loc_d[tb, es] = cw.edge_local[:, slot][wk, ek]
-                        val_d[tb, es] = True
-                    dec.push_chunk((aux % 4 - 1).astype(np.int8), ms_d,
-                                   loc_d, val_d, stream_no0=stream0,
-                                   erased=aux >= 4)
-                else:
-                    if dec.last_sign == 0:
-                        nz = np.nonzero(aux != 1)[0]
-                        if nz.size:
-                            dec.last_sign = int(aux[nz[0]]) - 1
-                    wk, ek = np.nonzero(valid)
-                    if wk.size:
-                        fp = pos[wk, ek]
-                        blk = np.int64(stream0) + wk * t + fp // sl
-                        st = blk * cfg.ngps \
-                            + cw.edge_local[:, slot][wk, ek]
-                        ms = (st // dec.ms_from_st if dec.ms_from_st
-                              else cw.edge_ms[:, slot][wk, ek])
-                        dec.edge_parts.append((ms.astype(np.int64), st))
-                cp = cw.code_phase[:, slot]
-                ok = np.nonzero(cp >= 0)[0]
-                wraps += self._delay_wraps(slot, cp[ok])
-                if ok.size:
-                    snos = stream0 + ok
-                    coph[prn] = CodePhaseList(snos, cp[ok])
-                    if cfg.carrier_smoothing > 0:
-                        cfrq[prn] = CodePhaseList(snos,
-                                                  cw.freq[:, slot][ok])
-                self.corr_quality[prn] = (
-                    float(cw.last[-1, slot, li["corr_q"]]),
-                    float(cw.last[-1, slot, li["corr_l"]]))
+            def gate(name):
+                return (cw.last[:, :, _LAST_IDX[name]] > 0.5).any(axis=0)
+            epoch = self._epoch(
+                stream0, 0, cw.code_phase, cw.freq,
+                {k: cw.last[-1, :, i] for k, i in _LAST_IDX.items()},
+                gate("locked"))
+            req_flags = gate("sweep_request")
+        self._serve_requests(chunk, req_flags, epoch.frames)
+        return epoch
 
-            frames: list = []
-            for slot, prn in enumerate(self.slots.slot_prn):
-                if prn == 0:
-                    continue
-                was_locked = bool(
-                    (cw.last[:, slot, li["locked"]] > 0.5).any())
-                subs = (self.decoders[slot].poll_subframes()
-                        if poll and was_locked else [])
-                if not subs:
-                    subs = [{}]
-                amp = float(cw.last[-1, slot, li["amplitude"]])
-                for sf in subs:
-                    sf["SAT"] = prn
-                    sf["AMP"] = amp
-                    sf["CN0"] = float(cn0_from_amp(amp))
-                    sf["CRM"] = float(cw.last[-1, slot, li["norm_max"]])
-                    sf["FRQ"] = float(cw.last[-1, slot, li["freq"]])
-                    sf["SWP"] = False
-                frames += subs
+    def _push_window(self, dec: NavDecoder, cw, slot: int, stream0: int,
+                     t: int) -> None:
+        """Feed one channel's signs and edges of a CompactWindow to its
+        decoder: the edge list as it is, or, where the slot was reset
+        mid-window (rare), its dense planes rebuilt for the exact
+        per-block erase path."""
+        sl = self._edge_sl
+        aux = cw.aux[:, slot]
+        pos = cw.edge_pos[:, slot]                             # [w, cap]
+        wk, ek = np.nonzero(pos >= 0)
+        fp = pos[wk, ek]
+        if (aux >= 4).any():
+            n = cw.last.shape[0] * t
+            ms_d = np.zeros((n, sl), np.int32)
+            loc_d = np.zeros((n, sl), np.int32)
+            val_d = np.zeros((n, sl), bool)
+            if wk.size:
+                tb = wk * t + fp // sl
+                es = fp % sl
+                ms_d[tb, es] = cw.edge_ms[:, slot][wk, ek]
+                loc_d[tb, es] = cw.edge_local[:, slot][wk, ek]
+                val_d[tb, es] = True
+            dec.push_chunk((aux % 4 - 1).astype(np.int8), ms_d, loc_d,
+                           val_d, stream_no0=stream0, erased=aux >= 4)
+            return
+        if dec.last_sign == 0:
+            nz = np.nonzero(aux != 1)[0]
+            if nz.size:
+                dec.last_sign = int(aux[nz[0]]) - 1
+        if wk.size:
+            blk = np.int64(stream0) + wk * t + fp // sl
+            st = blk * self.cfg.ngps + cw.edge_local[:, slot][wk, ek]
+            ms = (st // dec.ms_from_st if dec.ms_from_st
+                  else cw.edge_ms[:, slot][wk, ek])
+            dec.edge_parts.append((ms.astype(np.int64), st))
 
-            req_flags = (cw.last[:, :, li["sweep_request"]] > 0.5).any(axis=0)
-            count("track.delay_wraps", wraps)
-        self._serve_requests(chunk, req_flags, frames)
-        return EpochInput(skipped_samples=0, frames=frames,
+    def _epoch(self, stream0: int, skipped: int, code_phase: np.ndarray,
+               freq, last: dict, locked: np.ndarray) -> EpochInput:
+        """The epoch both consumes build once the decoders are fed: the
+        code-phase (and carrier) lists from the per-block planes [n, C],
+        each channel's correlation quality and frame from `last` (its
+        final block's outputs by _LAST_IDX name, [C] each), subframes
+        polled where `locked`."""
+        cfg = self.cfg
+        coph: dict = {}
+        cfrq: dict = {}
+        wraps = 0
+        for slot, prn in self._live():
+            cp = code_phase[:, slot]
+            ok = np.nonzero(cp >= 0)[0]
+            wraps += self._delay_wraps(slot, cp[ok])
+            if ok.size:
+                snos = stream0 + ok
+                coph[prn] = CodePhaseList(snos, cp[ok])
+                if cfg.carrier_smoothing > 0:
+                    cfrq[prn] = CodePhaseList(snos, freq[ok, slot])
+            self.corr_quality[prn] = (float(last["corr_q"][slot]),
+                                      float(last["corr_l"][slot]))
+
+        frames: list = []
+        for slot, prn in self._live():
+            subs = (self.decoders[slot].poll_subframes() if locked[slot]
+                    else [])
+            if not subs:
+                subs = [{}]
+            amp = float(last["amplitude"][slot])
+            for sf in subs:
+                sf["SAT"] = prn
+                sf["AMP"] = amp
+                sf["CN0"] = float(cn0_from_amp(amp))
+                sf["CRM"] = float(last["norm_max"][slot])
+                sf["FRQ"] = float(last["freq"][slot])
+                sf["SWP"] = False
+            frames += subs
+        count("track.delay_wraps", wraps)
+        return EpochInput(skipped_samples=skipped * cfg.ngps, frames=frames,
                           code_phases=coph, carrier_freqs=cfrq or None)
+
+    def _live(self) -> list:
+        """(slot, prn) of every slot that tracks a satellite."""
+        return [(s, p) for s, p in enumerate(self.slots.slot_prn) if p]
+
+    def _serve_requests(self, chunk, req_flags, frames: list) -> None:
+        """Serve the sweep requests of the slots flagged in req_flags on
+        the chunk's last block, and mark the swept satellites' frames."""
+        req = [s for s, _ in self._live() if req_flags[s]]
+        if req:
+            swept = self._serve_channel_sweeps(np.asarray(chunk[-1]), req)
+            swept_prns = {self.slots.slot_prn[s] for s in swept}
+            for sf in frames:
+                if sf.get("SAT") in swept_prns:
+                    sf["SWP"] = True
 
     def run_device(self, chunk_provider, n_chunks: int,
                    chunk_blocks: int | None = None):
@@ -489,34 +451,31 @@ class Receiver:
         Yields EpochInput once per chunk like run(), or once per
         download window with cfg.epoch_per_window.
 
-        cfg.chunks_per_download chunks form a download window.  With
-        cfg.fused_window_dispatch a whole window is tracked and packed
-        by track_window_impl; otherwise each chunk is dispatched and
-        packed (pack_outs_compact) on its own.  Either way the window's
-        packed rows come to the host in one copy, started as soon as
-        the window is enqueued; with cfg.download_windows_in_flight = 2
-        the host consumes window k while the device computes window
-        k+1.  Channel sweeps take effect up to chunks_per_download
-        chunks later than in run()."""
+        cfg.chunks_per_download chunks form a download window: one
+        provider call hands out its blocks, track_window_impl tracks and
+        packs them, and its packed rows come to the host in one copy,
+        started as soon as the window is enqueued; with
+        cfg.download_windows_in_flight = 2 the host consumes window k
+        while the device computes window k+1.  A full sweep drains the
+        windows in flight first; the swept chunk then forms a window of
+        its own where a whole window still follows, and that window
+        stays in flight until the next is enqueued.  These are the JAX
+        module's boundaries and order, and they decide the epochs: a
+        channel sweep served while a window is consumed resets the
+        state after the windows already enqueued.  Channel sweeps take
+        effect up to chunks_per_download chunks later than in run()."""
         cfg = self.cfg
         t = chunk_blocks or cfg.no_sec
         cap = self._edge_cap(t)
         w = max(1, cfg.chunks_per_download)
         inflight = max(1, cfg.download_windows_in_flight)
         with_freq = cfg.carrier_smoothing > 0
-        held = []                       # [(chunk, packed_dev, stream0)]
-        windows = []                    # [(items, _Download)]
-
-        def flush_held():
-            if held:
-                windows.append((held[:], _Download(
-                    torch.stack([p[1] for p in held]))))
-                held.clear()
+        windows = []                    # [(chunks, stream0, _Download)]
 
         def drain(count=None):
             n = len(windows) if count is None else count
             while n > 0 and windows:
-                take, download = windows.pop(0)
+                chunks, stream0, download = windows.pop(0)
                 with span("rx.download"):
                     host = download.result()
                 n -= 1
@@ -524,71 +483,50 @@ class Receiver:
                     # one consume pass over the whole window, straight
                     # from the sparse transport view
                     cw = unpack_window_compact(
-                        host, len(take[0][0]), cfg.max_sat, self._edge_sl,
-                        cap, with_freq)
-                    yield self._consume_window_compact(
-                        take[-1][0], cw, take[0][2], len(take[0][0]))
+                        host, t, cfg.max_sat, self._edge_sl, cap, with_freq)
+                    yield self._consume_window_compact(chunks[-1], cw,
+                                                       stream0, t)
                     continue
-                for i, ((chunk, _, stream0), row) in enumerate(
-                        zip(take, host)):
+                for i, (chunk, row) in enumerate(zip(chunks, host)):
                     outs, dropped = unpack_outs_compact(
-                        row, len(chunk), cfg.max_sat, self._edge_sl, cap,
-                        with_freq)
-                    poll = (not cfg.defer_subframe_poll
-                            or i == len(take) - 1)
-                    yield self._consume_chunk(chunk, outs, stream0, 0,
-                                              poll=poll,
-                                              dropped=int(dropped.sum()))
+                        row, t, cfg.max_sat, self._edge_sl, cap, with_freq)
+                    yield self._consume_chunk(chunk, outs, stream0 + i * t,
+                                              0, dropped=int(dropped.sum()))
 
         # stream numbering continues from wherever this receiver left
         # off; the provider's `first` stays relative to this call
         base = self.status.stream_no
-        fused = cfg.fused_window_dispatch and w > 1
         ci = 0
         while ci < n_chunks:
             if self._stop:
                 break
             first = ci * t
-            if fused and ci + w <= n_chunks and not self.sweep_all:
-                flush_held()          # partial window from a cold start
-                blocks = chunk_provider(first, w * t)
-                win = blocks.reshape((w, t) + tuple(blocks.shape[1:]))
-                self.status.stream_no = base + first
-                stream0 = self.status.stream_no + 1
-                self.states, packed = track_window_impl(
-                    cfg, self.states, win, stream0, self._codes_dev,
-                    self._ffts_dev, cap, with_freq)
-                self.status.stream_no += w * t
-                self.status.blocks_processed += w * t
-                self.status.k_steps += w * self._k_steps(t)
-                count("rx.blocks", w * t)
-                # win[i] is a view: nothing is copied unless a channel
-                # sweep reads one of its blocks
-                windows.append((
-                    [(_DeviceChunk(win[i]), None, stream0 + i * t)
-                     for i in range(w)], _Download(packed)))
-                ci += w
-                if len(windows) >= inflight:
-                    yield from drain(1)
-                continue
-            blocks_dev = chunk_provider(first, t)
+            n = min(w, n_chunks - ci)
+            if self.sweep_all and ci + 1 + w <= n_chunks:
+                n = 1
+            blocks = chunk_provider(first, n * t)
             if self.sweep_all:
                 # the channel set changes the states: drain the pipeline
                 # first; acquisition takes one block on the host
-                flush_held()
                 yield from drain()
-                self._serve_sweep_all(_download_block(blocks_dev, 0))
-            chunk = _DeviceChunk(blocks_dev)
+                self._serve_sweep_all(_download_block(blocks, 0))
+            win = blocks.reshape((n, t) + tuple(blocks.shape[1:]))
             self.status.stream_no = base + first
-            outs_dev, stream0 = self._dispatch_chunk(chunk)
-            held.append((chunk, pack_outs_compact(outs_dev, cap, with_freq),
-                         stream0))
-            ci += 1
-            if len(held) == w:
-                flush_held()
-            if len(windows) >= inflight:
+            stream0 = self.status.stream_no + 1
+            self.states, packed = track_window_impl(
+                cfg, self.states, win, stream0, self._codes_dev,
+                self._ffts_dev, cap, with_freq)
+            self.status.stream_no += n * t
+            self.status.blocks_processed += n * t
+            self.status.k_steps += n * self._k_steps(t)
+            count("rx.blocks", n * t)
+            # win[i] is a view: nothing is copied unless a channel sweep
+            # reads one of its blocks
+            windows.append(([_DeviceChunk(x) for x in win], stream0,
+                            _Download(packed)))
+            ci += n
+            if n == w and len(windows) >= inflight:
                 yield from drain(1)
-        flush_held()
         yield from drain()
 
     def _note_dropped(self, n: int) -> None:
@@ -623,9 +561,9 @@ class Receiver:
 class _DeviceChunk:
     """Adapter: lets the consume path treat a device chunk as the chunk
     (the sweep service reads its first or last block on the host).  A
-    chunk of a fused window is a view, win[i], or win[i, s] for stream s
-    of a serving window of independent front ends: nothing is copied
-    unless a sweep reads one of its blocks."""
+    chunk of a download window is a view, win[i], or win[i, s] for
+    stream s of a serving window of independent front ends: nothing is
+    copied unless a sweep reads one of its blocks."""
 
     def __init__(self, blocks_dev: torch.Tensor):
         self.blocks_dev = blocks_dev

@@ -18,15 +18,18 @@ wipeoff and one cheap launch a group, and each group's packed rows
 cross to the host as one pinned copy a window, joined there in stream
 order.  Streams share no state, so the split gives the same bits.
 
-The device loop mirrors Receiver.run_device (fused or per-chunk
-dispatch, windowed downloads in flight); host-side channel management
-(the cold-start sweep, per-channel re-sweeps) runs per stream and
-scatters its slot updates back into the stacked state.  Where the JAX
-module indexes a stacked window through _WindowChunk, a torch window is
-indexed by a view (win[i] of the shared window or of a stream's own).
+The device loop mirrors Receiver.run_device (one tracking call a
+download window, windowed downloads in flight); host-side channel
+management (the cold-start sweep, per-channel re-sweeps) runs per
+stream and scatters its slot updates back into the stacked state.
+Where the JAX module indexes a stacked window through _WindowChunk, a
+torch window is indexed by a view (win[i] of the shared window or of a
+stream's own).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -34,11 +37,12 @@ import torch
 from gps_sdr_tpu_torch.config import ReceiverConfig
 from gps_sdr_tpu_torch.device import resolve_device
 from gps_sdr_tpu_torch.ops.tracking import (_LAST_IDX, ChannelState,
-                                            pack_outs_compact,
-                                            track_streams_impl,
                                             track_streams_window_impl,
                                             unpack_outs_compact,
                                             unpack_window_compact)
+# not called here: kept importable for the benchmark's fault test, which
+# patches it by this module's name
+from gps_sdr_tpu_torch.ops.tracking import track_streams_impl  # noqa: F401
 from gps_sdr_tpu_torch.runtime.receiver import (Receiver, _DeviceChunk,
                                                 _Download, _download_block)
 from gps_sdr_tpu_torch.utils.profiling import count, span
@@ -134,24 +138,22 @@ class StreamServer:
         self._codes_dev[g] = put(self._codes_dev[g], rec._codes_dev)
         self._ffts_dev[g] = put(self._ffts_dev[g], rec._ffts_dev)
 
-    def _track(self, fn, blocks: list, shared: bool, stream_dim: int,
-               stream0: int, *extra):
-        """Run `fn` (track_streams_impl or track_streams_window_impl) on
-        every group, on its device: `blocks` holds the one chunk or
-        window every stream reads (shared), or one a stream, stacked on
-        `stream_dim` for the group.  Returns the groups' second results
-        (outputs or packed rows), in stream order."""
+    def _track(self, wins: list, shared: bool, stream0: int, cap: int,
+               with_freq: bool) -> list:
+        """track_streams_window_impl on every group, on its device:
+        `wins` holds the one window [n, t, *iq] every stream reads
+        (shared), or one a stream, stacked [n, S_g, t, *iq] for the
+        group.  Returns the groups' packed rows, in stream order."""
         outs = []
         for g, dev in enumerate(self._group_devs):
             if shared:
-                x = blocks[0].to(dev)
+                x = wins[0].to(dev)
             else:
-                x = torch.stack([blocks[s].to(dev)
-                                 for s in self._group_streams(g)],
-                                dim=stream_dim)
-            self._stacked[g], out = fn(
+                x = torch.stack([wins[s].to(dev)
+                                 for s in self._group_streams(g)], dim=1)
+            self._stacked[g], out = track_streams_window_impl(
                 self.cfg, self._stacked[g], x, stream0, self._codes_dev[g],
-                self._ffts_dev[g], *extra, shared)
+                self._ffts_dev[g], cap, with_freq, shared)
             outs.append(out)
         return outs
 
@@ -185,6 +187,14 @@ class StreamServer:
         if self._stacked is None:      # cold start: first stack
             self._restack()
 
+    @contextlib.contextmanager
+    def _stage(self, name: str):
+        """Time a stage of run() as span serve.<name> and add its
+        seconds to self.perf[name]."""
+        with span("serve." + name) as sp:
+            yield
+        self.perf[name] += sp.seconds
+
     def run(self, providers, n_chunks: int,
             chunk_blocks: int | None = None):
         """Yield (stream_idx, EpochInput) pairs, chunk-major.
@@ -196,15 +206,23 @@ class StreamServer:
         is relative to this call; stream numbers continue from where the
         receivers left off.
 
+        cfg.chunks_per_download chunks form a download window: one call
+        a provider hands out its blocks (one window read by every
+        stream, or S windows, each then held in flight until drained),
+        track_streams_window_impl tracks and packs them, and the groups'
+        packed rows come to the host as one pinned copy a group.  A
+        full sweep drains the windows in flight first; the window that
+        follows starts with the swept chunk.
+
         Wall-clock stage totals of this call accumulate in `self.perf`
         (seconds), each the sum of the stage's span (serve.<stage>):
-        dispatch (channel sweeps, provider + tracking enqueue), pack,
-        stack (window stacking + the start of its pinned copy), transfer
-        (waiting for a window's copy), unpack (host decode of packed
-        rows), consume (receiver nav/epoch build).  The evaluator's time
-        is the caller's: everything outside the generator."""
-        perf = self.perf = {k: 0.0 for k in (
-            "dispatch", "pack", "stack", "transfer", "unpack", "consume")}
+        dispatch (full sweeps, providers + tracking enqueue), stack (the
+        start of a window's pinned copies), transfer (waiting for a
+        window's copy), unpack (host decode of packed rows), consume
+        (receiver nav/epoch build).  The evaluator's time is the
+        caller's: everything outside the generator."""
+        self.perf = {k: 0.0 for k in (
+            "dispatch", "stack", "transfer", "unpack", "consume")}
         cfg = self.cfg
         s_n = self.n_streams
         if callable(providers):
@@ -216,46 +234,17 @@ class StreamServer:
         w = max(1, cfg.chunks_per_download)
         inflight = max(1, cfg.download_windows_in_flight)
         with_freq = cfg.carrier_smoothing > 0
-        held = []     # [(chunks, packed [S_g, L] a group, stream0)]
-        windows = []  # [(items [(chunks, stream0)], _GroupDownload)]
+        windows = []  # [(chunks [n][1 or S], stream0, _GroupDownload)]
 
-        def flush_held():
-            if not held:
-                return
-            with span("serve.stack") as sp:
-                packed = [torch.stack([p[g] for _, p, _ in held])
-                          for g in range(len(self._group_devs))]
-                windows.append(([(c, n0) for c, _, n0 in held],
-                                _GroupDownload(packed)))  # [w', S_g, L]
-                held.clear()
-            perf["stack"] += sp.seconds
-
-        def want_state(s, want_sweep):
+        def consume(s, want_sweep, fn, chunks, *args, **kw):
             # expose this stream's device state to the host-side channel
             # manager only when a re-sweep will fire (it resets slots on
-            # it); returns the sweeps served so far, to see if one was
+            # it), and push it back if one was served
             rec = self.receivers[s]
             if bool(want_sweep):
                 rec.states = self._slice_stream(s)
-            return rec.status.sweeps_served
-
-        def consume_one(s, chunks, outs, stream0, poll, dropped):
-            rec = self.receivers[s]
-            before = want_state(s, outs.sweep_request[-1].any())
-            epoch = rec._consume_chunk(chunks[0 if shared else s], outs,
-                                       stream0, 0, poll=poll,
-                                       dropped=dropped)
-            if rec.status.sweeps_served != before:
-                self._scatter_stream(s)
-            return epoch
-
-        def consume_window(s, chunks, cw, stream0):
-            # window-mode consume over the sparse transport view
-            rec = self.receivers[s]
-            before = want_state(
-                s, (cw.last[:, :, _LAST_IDX["sweep_request"]] > 0.5).any())
-            epoch = rec._consume_window_compact(chunks[0 if shared else s],
-                                                cw, stream0, t)
+            before = rec.status.sweeps_served
+            epoch = fn(rec, chunks[0 if shared else s], *args, **kw)
             if rec.status.sweeps_served != before:
                 self._scatter_stream(s)
             return epoch
@@ -263,41 +252,39 @@ class StreamServer:
         def drain(count=None):
             n = len(windows) if count is None else count
             while n > 0 and windows:
-                take, download = windows.pop(0)
+                chunks, stream0, download = windows.pop(0)
                 n -= 1
-                with span("serve.transfer") as sp:
-                    host = download.result()           # [w', S, L]
-                perf["transfer"] += sp.seconds
+                with self._stage("transfer"):
+                    host = download.result()           # [n, S, L]
                 if cfg.epoch_per_window:
                     # one consume pass per stream over the whole window,
                     # straight from the sparse transport view
-                    for s, rec in enumerate(self.receivers):
-                        with span("serve.unpack") as sp:
+                    for s in range(s_n):
+                        with self._stage("unpack"):
                             cw = unpack_window_compact(
                                 host[:, s], t, cfg.max_sat, sl, cap,
                                 with_freq)
-                        perf["unpack"] += sp.seconds
                         # closed before the yield: the generator suspends
                         # there, and the caller's work is not consume's
-                        with span("serve.consume") as sp:
-                            out = consume_window(s, take[-1][0], cw,
-                                                 take[0][1])
-                        perf["consume"] += sp.seconds
+                        with self._stage("consume"):
+                            out = consume(
+                                s, (cw.last[:, :, _LAST_IDX["sweep_request"]]
+                                    > 0.5).any(),
+                                Receiver._consume_window_compact,
+                                chunks[-1], cw, stream0, t)
                         yield s, out
                     continue
-                for i, ((chunks, stream0), row) in enumerate(zip(take,
-                                                                 host)):
-                    poll = (not cfg.defer_subframe_poll
-                            or i == len(take) - 1)
-                    for s, rec in enumerate(self.receivers):
-                        with span("serve.unpack") as sp:
+                for i, row in enumerate(host):
+                    for s in range(s_n):
+                        with self._stage("unpack"):
                             outs, dropped = unpack_outs_compact(
                                 row[s], t, cfg.max_sat, sl, cap, with_freq)
-                        perf["unpack"] += sp.seconds
-                        with span("serve.consume") as sp:
-                            out = consume_one(s, chunks, outs, stream0,
-                                              poll, int(dropped.sum()))
-                        perf["consume"] += sp.seconds
+                        with self._stage("consume"):
+                            out = consume(
+                                s, outs.sweep_request[-1].any(),
+                                Receiver._consume_chunk, chunks[i], outs,
+                                stream0 + i * t, 0,
+                                dropped=int(dropped.sum()))
                         yield s, out
 
         def advance(n_blocks):
@@ -307,12 +294,6 @@ class StreamServer:
                 rec.status.k_steps += rec._k_steps(t) * (n_blocks // t)
             count("rx.blocks", n_blocks * s_n)
 
-        # fused window dispatch: a whole window of w chunks is tracked and
-        # packed by one enqueue pass (track_streams_window_impl); shared
-        # providers hand out one window read by every stream, independent
-        # front ends S windows, stacked [w, S_g, t, *iq] a group (each
-        # window in flight then holds S chunks of IQ until drained)
-        fused = cfg.fused_window_dispatch and w > 1
         if self._stacked is None and not any(r.sweep_all
                                              for r in self.receivers):
             # resumed from a checkpoint (runtime/checkpoint.py
@@ -322,55 +303,29 @@ class StreamServer:
         ci = 0
         while ci < n_chunks:
             first = ci * t
+            n = min(w, n_chunks - ci)
             sweep = any(r.sweep_all for r in self.receivers)
-            window = fused and ci + w <= n_chunks
-            if sweep or window:
-                # a sweep changes the states: drain the pipeline first;
-                # a fused window follows any partial one from a cold start
-                flush_held()
-                if sweep:
-                    yield from drain()
-            with span("serve.dispatch") as sp:
+            if sweep:
+                # a sweep changes the states: drain the pipeline first
+                yield from drain()
+            with self._stage("dispatch"):
                 if sweep:
                     self._sweep_streams(providers, shared, first, t)
                 stream0 = self.receivers[0].status.stream_no + 1
-                if window:
-                    # [w, t, *iq]: the shared window, or one a stream
-                    wins = [b.reshape((w, t) + tuple(b.shape[1:])) for b in
-                            (p(first, w * t) for p in
-                             providers[:1 if shared else s_n])]
-                    packed = self._track(track_streams_window_impl,
-                                         wins, shared, 1, stream0, cap,
-                                         with_freq)
-                    advance(w * t)
-                else:
-                    chunks = ([providers[0](first, t)] if shared
-                              else [p(first, t) for p in providers])
-                    outs = self._track(track_streams_impl, chunks, shared,
-                                       0, stream0)
-                    advance(t)
-            perf["dispatch"] += sp.seconds
-            if window:
-                with span("serve.stack") as sp:
-                    windows.append(([([_DeviceChunk(x[i]) for x in wins],
-                                      stream0 + i * t) for i in range(w)],
-                                    _GroupDownload(packed)))
-                perf["stack"] += sp.seconds
-                ci += w
-            else:
-                with span("serve.pack") as sp:
-                    held.append(([_DeviceChunk(c) for c in chunks],
-                                 [pack_outs_compact(o, cap, with_freq)
-                                  for o in outs], stream0))
-                perf["pack"] += sp.seconds
-                ci += 1
-                if len(held) == w:
-                    flush_held()
+                # [n, t, *iq]: the shared window, or one a stream
+                wins = [b.reshape((n, t) + tuple(b.shape[1:])) for b in
+                        (p(first, n * t) for p in
+                         providers[:1 if shared else s_n])]
+                packed = self._track(wins, shared, stream0, cap, with_freq)
+                advance(n * t)
+            with self._stage("stack"):
+                windows.append(([[_DeviceChunk(x[i]) for x in wins]
+                                 for i in range(n)], stream0,
+                                _GroupDownload(packed)))
+            ci += n
             if len(windows) >= inflight:
                 yield from drain(1)
-        flush_held()
         yield from drain()
         # hand the final device states back to the receivers
         for s, rec in enumerate(self.receivers):
             rec.states = self._slice_stream(s)
-

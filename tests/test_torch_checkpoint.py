@@ -127,7 +127,7 @@ def _collect(server, providers, n_chunks, out):
                          ids=["shared", "independent"])
 def test_server_resume_matches_uninterrupted(tmp_path, shared):
     cfg = CFG.replace(chunks_per_download=2, download_windows_in_flight=2,
-                      defer_subframe_poll=True, epoch_per_window=True)
+                      epoch_per_window=True)
     n_chunks, half = 5, 2
     iq = [IQ[0]] * 2 if shared else IQ
 
@@ -162,6 +162,36 @@ def test_server_resume_matches_uninterrupted(tmp_path, shared):
         assert a.status == b.status
         for x, y in zip(a.states, b.states):
             assert torch.equal(x, y)
+
+
+# fields that ReceiverConfig had once, each at a value a saved run set
+REMOVED_FIELDS = {"use_pallas_kernels": False, "use_pallas_cheap": False,
+                  "fused_window_dispatch": True, "defer_subframe_poll": True}
+
+
+@pytest.mark.parametrize("loader", ["load_session", "load_server"])
+def test_checkpoint_with_removed_config_fields_loads(tmp_path, loader):
+    """A checkpoint whose pickled config still carries fields that the
+    config no longer has loads, under the config of today's fields."""
+    cfg = CFG.replace(chunks_per_download=2)
+    old = cfg.replace()
+    for name, value in REMOVED_FIELDS.items():
+        object.__setattr__(old, name, value)
+    path = str(tmp_path / "old.pkl")
+    if loader == "load_session":
+        session = Session(old, device="cpu")
+        checkpoint.save_session(session, path)
+        got = checkpoint.load_session(path, device="cpu").cfg
+    else:
+        server = StreamServer(old, 2, device="cpu")
+        checkpoint.save_server(server, [Evaluator(old)] * 2, path)
+        got, evs = checkpoint.load_server(path, device="cpu")
+        assert len(got.receivers) == len(evs) == 2
+        got = got.cfg
+    with open(path, "rb") as f:
+        assert set(REMOVED_FIELDS) <= set(vars(pickle.load(f)["cfg"]))
+    assert got == cfg
+    assert not set(REMOVED_FIELDS) & set(vars(got))
 
 
 def test_wrong_version_raises(tmp_path):
@@ -221,7 +251,7 @@ def test_serve_resume_continues_at_the_saved_block(tmp_path, capsys,
     blocks after the saved ones, not for block 0."""
     cfg = CFG.replace(max_sat=4, chunks_per_download=2,
                       download_windows_in_flight=4,
-                      defer_subframe_poll=True, epoch_per_window=True)
+                      epoch_per_window=True)
     t = cfg.no_sec
     scn = make_scenario(cfg, n_sats=SERVE_SATS, seed=SERVE_SEED,
                         duration_sec=SERVE_SEC + 12.0)

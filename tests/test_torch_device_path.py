@@ -7,8 +7,8 @@ inverses).
     overflow counting included (the same f32 values packed the same way);
   * the port's run_device against JAX Receiver.run_device on identical
     numpy grouped planar IQ (JAX's XLA path on the CPU, the port's plain
-    versions), fused and per-chunk windows, with and without one epoch
-    per window: exact frame keys, satellites, code-phase block numbers
+    versions), cold and primed starts, with and without one epoch per
+    window: exact frame keys, satellites, code-phase block numbers
     and the bits and edges each NavDecoder received; code phases atol
     5e-3 samples, AMP and CRM rtol 1e-3, FRQ atol 1e-2 Hz (the tolerances
     of tests/test_torch_receiver.py: f32 reduction order carried through
@@ -174,15 +174,14 @@ def _compare_decoders(jr, tr):
     assert n_edges > 0
 
 
-# (fused windows, one epoch per window, cold start)
-@pytest.mark.parametrize("fused,per_window,cold", [
-    (False, False, True), (True, False, False), (True, True, False),
-    (False, True, False)],
-    ids=["chunks-cold", "fused", "fused-window-epochs",
-         "chunks-window-epochs"])
-def test_run_device_matches_jax(fused, per_window, cold):
+# (one epoch per window, cold start): a cold start sends the swept chunk
+# as a window of its own
+@pytest.mark.parametrize("per_window,cold", [
+    (False, True), (False, False), (True, False), (True, True)],
+    ids=["chunk-epochs-cold", "chunk-epochs", "window-epochs",
+         "window-epochs-cold"])
+def test_run_device_matches_jax(per_window, cold):
     cfg = CFG.replace(chunks_per_download=2, download_windows_in_flight=2,
-                      fused_window_dispatch=fused,
                       epoch_per_window=per_window)
     iq = _planar_iq(N_CHUNKS * T)
     jr, tr = JaxReceiver(_jax(cfg)), Receiver(cfg, device="cpu")
@@ -192,7 +191,7 @@ def test_run_device_matches_jax(fused, per_window, cold):
                              N_CHUNKS, chunk_blocks=T))
     tep = list(tr.run_device(lambda f, n: torch.from_numpy(iq[f:f + n]),
                              N_CHUNKS, chunk_blocks=T))
-    want_epochs = 3 if per_window and not cold else N_CHUNKS
+    want_epochs = 3 if per_window else N_CHUNKS
     assert len(tep) == want_epochs
     # a cold start tracks from a 200 Hz Doppler bin: its edge storm
     # overflows the transport cap, and both count the same drops
@@ -218,7 +217,7 @@ def _frames_key(epochs):
 
 @pytest.mark.parametrize("mxu", [False, True])
 def test_run_device_matches_run(mxu):
-    """run_device (compact transport, fused windows of 3 chunks) yields
+    """run_device (compact transport, windows of 3 chunks) yields
     the epochs of the host path run(), chunk for chunk."""
     cfg = CFG.replace(chunks_per_download=3, use_mxu_wipeoff=mxu)
     n_chunks = 3

@@ -293,10 +293,11 @@ def test_receiver_run_excision_matches_jax():
     _compare_decoders(jr, tr)
 
 
-@pytest.mark.parametrize("fused", [False, True], ids=["chunks", "fused"])
-def test_run_device_excision_matches_jax(fused):
+@pytest.mark.parametrize("per_window", [False, True],
+                         ids=["chunk-epochs", "window-epochs"])
+def test_run_device_excision_matches_jax(per_window):
     cfg = CFG.replace(cw_excision=12.0, chunks_per_download=2,
-                      fused_window_dispatch=fused)
+                      epoch_per_window=per_window)
     iq = _jammed_planar(N_CHUNKS * T)
     jr, tr = JaxReceiver(_jax(cfg)), Receiver(cfg, device="cpu")
     jep = list(jr.run_device(lambda f, n: jnp.asarray(iq[f:f + n]),

@@ -280,11 +280,11 @@ def _sharded_servers(cfg, n_streams=4):
             StreamServer(cfg, n_streams, device="cpu"))
 
 
-# (shared capture, fused windows, one epoch per window, cold start)
-@pytest.mark.parametrize("shared,fused,per_window,cold", [
-    (True, True, False, True), (False, False, True, False)],
-    ids=["shared-fused-cold", "independent-chunks-window-epochs"])
-def test_stream_sharded_server_matches_jax(shared, fused, per_window, cold):
+# (shared capture, one epoch per window, cold start)
+@pytest.mark.parametrize("shared,per_window,cold", [
+    (True, False, True), (False, True, False)],
+    ids=["shared-cold", "independent-window-epochs"])
+def test_stream_sharded_server_matches_jax(shared, per_window, cold):
     """4 streams over a stream mesh of 4 against JAX's sharded server
     and the port's unsharded one: epochs (frame keys, satellites,
     code-phase block numbers exact; code phases atol 5e-3, AMP/CRM rtol
@@ -292,7 +292,6 @@ def test_stream_sharded_server_matches_jax(shared, fused, per_window, cold):
     plain versions round a 1-stream group otherwise than a 4-stream
     stack), decoders, slots and stream counters."""
     cfg = SMALL.replace(chunks_per_download=2, download_windows_in_flight=2,
-                        fused_window_dispatch=fused,
                         epoch_per_window=per_window)
     servers = _sharded_servers(cfg)
     iq = [IQ[0]] * 4 if shared else [IQ[s % 2] for s in range(4)]
@@ -331,7 +330,7 @@ def test_load_server_with_a_mesh(tmp_path):
     gives the code phases and subframes of an uninterrupted sharded run,
     exactly; the resumed receivers live on the mesh's devices."""
     cfg = SMALL.replace(chunks_per_download=2, download_windows_in_flight=2,
-                        defer_subframe_poll=True, epoch_per_window=True)
+                        epoch_per_window=True)
     n_chunks, half = 5, 2
 
     def provider(offset):

@@ -14,7 +14,6 @@ acquisition, as tests/torch_envelope.py's check_acquisition holds it
 (caches, configs, UI events, almanacs) is held exactly, on the numpy
 host paths of both packages."""
 
-import dataclasses
 import json
 import time
 
@@ -26,7 +25,8 @@ import torch
 from chip_smoke import ScriptedUI
 from tests.conftest import cached_synth
 from tests.test_cli_ui import epoch_records  # fixture  # noqa: F401
-from tests.torch_parity import numpy_host_core, pair, same  # noqa: F401
+from tests.torch_parity import (numpy_host_core, pair, same,  # noqa: F401
+                                same_config)
 
 matplotlib.use("Agg")
 torch.set_num_threads(2)
@@ -87,8 +87,7 @@ def test_ui_stop_and_close_end_the_run_at_the_same_epoch(blocks, event):
 def test_ui_height_toggle(blocks):
     js, ts = _sessions(blocks, "HEIGHT", 1)
     assert js.evaluator.cfg.conf_height and ts.evaluator.cfg.conf_height
-    same(dataclasses.asdict(ts.evaluator.cfg),
-         dataclasses.asdict(js.evaluator.cfg))
+    same_config(ts.evaluator.cfg, js.evaluator.cfg)
 
 
 def test_ui_clear_event(blocks):
@@ -105,8 +104,7 @@ def test_ui_clear_event(blocks):
 def test_ui_set_height_event(blocks):
     js, ts = _sessions(blocks, ("SET_HEIGHT", 123.0), 1)
     assert js.evaluator.cfg.height == ts.evaluator.cfg.height == 123.0
-    same(dataclasses.asdict(ts.evaluator.cfg),
-         dataclasses.asdict(js.evaluator.cfg))
+    same_config(ts.evaluator.cfg, js.evaluator.cfg)
 
 
 def test_plotui_buttons_emit_reference_events():
@@ -198,8 +196,8 @@ def test_cli_solve_clock_rate_flag(argv):
         assert cfg.solve_clock_rate is ("--solve-clock-rate" in argv)
         ev = evaluator.Evaluator(cfg)
         assert ev.cfg.solve_clock_rate is cfg.solve_clock_rate
-        cfgs.append(dataclasses.asdict(cfg))
-    same(cfgs[1], cfgs[0])
+        cfgs.append(cfg)
+    same_config(cfgs[1], cfgs[0])
 
 
 def test_session_warm_start_plumbing(tmp_path):

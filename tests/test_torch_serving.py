@@ -5,12 +5,12 @@ stream axis of the wipeoff kernels' plain versions).
   * the port's StreamServer against the JAX StreamServer on identical
     numpy grouped planar IQ (JAX's XLA path on the CPU, the port's plain
     versions): replicas of one capture and independent front ends,
-    fused windows and per-chunk dispatch, one epoch per window or per
-    chunk, cold and primed starts.  Exact: frame keys, satellites,
-    code-phase block numbers, acquired PRNs, slots, dropped-edge counts
-    and the bits and edges each NavDecoder received.  Code phases atol
-    5e-3 samples, AMP and CRM rtol 1e-3, FRQ atol 1e-2 Hz (the
-    device-path tolerances of tests/test_torch_device_path.py);
+    one epoch per window or per chunk, cold and primed starts.  Exact:
+    frame keys, satellites, code-phase block numbers, acquired PRNs,
+    slots, dropped-edge counts and the bits and edges each NavDecoder
+    received.  Code phases atol 5e-3 samples, AMP and CRM rtol 1e-3,
+    FRQ atol 1e-2 Hz (the device-path tolerances of
+    tests/test_torch_device_path.py);
   * each stream of the port's server against the port's own single
     Receiver.run_device, with the same tolerances: PyTorch's CPU
     reductions are not batch-invariant (a sum over a [S*C, n] tensor may
@@ -18,6 +18,11 @@ stream axis of the wipeoff kernels' plain versions).
     AMP by up to ~6e-4 relative here while code phases and FRQ agree
     bit for bit;
   * the shared cold start runs the acquisition grid once;
+  * the chunk count of each download window of Receiver.run_device and
+    of StreamServer.run around a cold and a requested sweep and over a
+    tail: the boundaries decide the epochs, since a channel sweep
+    served while a window is consumed resets the state after the
+    windows already enqueued;
   * the stream-axis pack_outs_compact against JAX's _pack_streams
     (vmap of pack_outs_compact): exact;
   * the stream-axis plain versions of both wipeoff kernels against
@@ -97,15 +102,14 @@ def _serve(server, shared, wrap, cold):
                          N_CHUNKS)
 
 
-# (shared capture, fused windows, one epoch per window, cold start)
-@pytest.mark.parametrize("shared,fused,per_window,cold", [
-    (True, True, False, True), (True, False, True, False),
-    (False, True, True, False), (False, False, False, True)],
-    ids=["shared-fused-cold", "shared-chunks-window-epochs",
-         "independent-fused-window-epochs", "independent-chunks-cold"])
-def test_stream_server_matches_jax(shared, fused, per_window, cold):
+# (shared capture, one epoch per window, cold start)
+@pytest.mark.parametrize("shared,per_window,cold", [
+    (True, False, True), (True, True, False), (False, True, False),
+    (False, False, True)],
+    ids=["shared-cold", "shared-window-epochs",
+         "independent-window-epochs", "independent-cold"])
+def test_stream_server_matches_jax(shared, per_window, cold):
     cfg = CFG.replace(chunks_per_download=2, download_windows_in_flight=2,
-                      fused_window_dispatch=fused,
                       epoch_per_window=per_window)
     js = JaxServer(_jax(cfg), 2)
     ts = StreamServer(cfg, 2, device="cpu")
@@ -143,12 +147,14 @@ def test_stream_server_matches_jax(shared, fused, per_window, cold):
 
 @pytest.mark.parametrize("shared", [True, False],
                          ids=["shared", "independent"])
-@pytest.mark.parametrize("fused", [False, True], ids=["chunks", "fused"])
-def test_streams_match_single_receivers(shared, fused):
+@pytest.mark.parametrize("per_window", [False, True],
+                         ids=["chunk-epochs", "window-epochs"])
+def test_streams_match_single_receivers(shared, per_window):
     """Each of 3 streams against a Receiver.run_device of its own IQ,
-    epoch for epoch (one epoch per chunk, the same windows)."""
+    epoch for epoch (one epoch per chunk or per window, the same
+    windows)."""
     cfg = CFG.replace(chunks_per_download=2, download_windows_in_flight=2,
-                      fused_window_dispatch=fused)
+                      epoch_per_window=per_window)
     srv = StreamServer(cfg, 3, device="cpu")
     for s, rx in enumerate(srv.receivers):
         _primed(rx, _sky(shared, s % 2))
@@ -195,6 +201,87 @@ def test_shared_cold_start_sweeps_once(monkeypatch):
     assert calls == [None, None]
     assert [sorted(p for p in rx.slots.slot_prn if p)
             for rx in srv.receivers] == [[5, 12], [7, 21]]
+
+
+def _window_sizes(monkeypatch, run):
+    """The chunk count of each download window that `run()` starts
+    (one _Download a window and stream group), the epochs it yields
+    and the acquisition grids it runs.  The first yield asks for a full
+    sweep, so the run meets a cold sweep and a requested one."""
+    from gps_sdr_tpu_torch.runtime import serving as serving_mod
+
+    sizes, grids = [], []
+    real = receiver_mod.acquire_all
+
+    def counting(*a, **k):
+        grids.append(k.get("prns"))
+        return real(*a, **k)
+
+    class Recording(receiver_mod._Download):
+        def __init__(self, arr):
+            sizes.append(arr.shape[0])
+            super().__init__(arr)
+
+    monkeypatch.setattr(receiver_mod, "_Download", Recording)
+    monkeypatch.setattr(serving_mod, "_Download", Recording)
+    monkeypatch.setattr(receiver_mod, "acquire_all", counting)
+    n_epochs = run()
+    return sizes, n_epochs, len(grids)
+
+
+# (chunks, window, windows in flight, one epoch per window): the device
+# loop sends one chunk after a sweep where a whole window still follows
+@pytest.mark.parametrize("n_chunks,w,inflight,per_window,want", [
+    (5, 2, 1, False, [1, 2, 2]), (5, 2, 2, True, [1, 2, 2]),
+    (7, 2, 1, False, [1, 2, 1, 2, 1])],
+    ids=["2w+1", "2w+1-window-epochs", "3w+1"])
+def test_run_device_window_boundaries(monkeypatch, n_chunks, w, inflight,
+                                      per_window, want):
+    cfg = CFG.replace(chunks_per_download=w,
+                      download_windows_in_flight=inflight,
+                      epoch_per_window=per_window)
+    iq = _planar_iq(SATS, 9, n_chunks * T)
+    rx = Receiver(cfg, device="cpu")
+
+    def run():
+        n = 0
+        for _ in rx.run_device(lambda f, m: torch.from_numpy(iq[f:f + m]),
+                               n_chunks, chunk_blocks=T):
+            if n == 0:
+                rx.request_sweep()
+            n += 1
+        return n
+
+    sizes, n_epochs, n_grids = _window_sizes(monkeypatch, run)
+    assert sizes == want
+    assert n_epochs == (len(want) if per_window else n_chunks)
+    assert n_grids == 2
+    assert rx.status.stream_no == n_chunks * T
+
+
+# the server sends a whole window from the swept chunk, and the rest at
+# the end
+@pytest.mark.parametrize("shared,want", [(True, [2, 2, 1]),
+                                         (False, [2, 2, 1])],
+                         ids=["shared", "independent"])
+def test_stream_server_window_boundaries(monkeypatch, shared, want):
+    cfg = CFG.replace(chunks_per_download=2)
+    srv = StreamServer(cfg, 2, device="cpu")
+
+    def run():
+        n = 0
+        for _ in srv.run(_providers(shared, torch.from_numpy, 2),
+                         N_CHUNKS, T):
+            if n == 0:
+                srv.receivers[0].request_sweep()
+            n += 1
+        return n
+
+    sizes, n_epochs, n_grids = _window_sizes(monkeypatch, run)
+    assert sizes == want
+    assert n_epochs == 2 * N_CHUNKS
+    # the cold sweep (once for replicas) and stream 0's requested one
+    assert n_grids == (2 if shared else 3)
 
 
 def _stacked_case(n_streams, shared):

@@ -16,7 +16,6 @@ tests/torch_envelope.py's MEAN_ATOL.  --on-device on the CPU passes, and
 the entry point without a device raises where CUDA is absent."""
 
 import contextlib
-import dataclasses
 import hashlib
 import importlib.util
 import io
@@ -36,6 +35,7 @@ import gps_sdr_tpu.runtime.session as jax_session_mod
 from gps_sdr_tpu.models.scenario import synth_scenario_blocks as jax_synth
 from gps_sdr_tpu_torch.examples import synthetic_fix as sf
 from tests.torch_envelope import MEAN_ATOL, jax_cfg
+from tests.torch_parity import same_config
 
 torch.set_num_threads(2)
 
@@ -103,7 +103,7 @@ def test_config_scenario_and_cache_key_equal_the_jax_examples(
                           *flags])
     with contextlib.redirect_stdout(io.StringIO()):
         cfg, scn = sf.build(args)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    same_config(cfg, jcfg)
     assert [s.prn for s in scn.sats] == [s.prn for s in jscn.sats]
     assert (scn.tow0, scn.week) == (jscn.tow0, jscn.week)
     np.testing.assert_array_equal(scn.rec_ecef, jscn.rec_ecef)

@@ -50,7 +50,7 @@ N_BLOCKS = 1 + CFG.no_sec + 6
 READERS = ("source_ms_per_s", "upload_gbps", "kstep_enqueue_us",
            "download_wait_ms_per_s", "nav_ms_per_s", "acq_ms_per_sweep",
            "chunk_p95_ms", "loop_self_ms_per_s", "packed_upload_share")
-PERF_KEYS = ("dispatch", "pack", "stack", "transfer", "unpack", "consume")
+PERF_KEYS = ("dispatch", "stack", "transfer", "unpack", "consume")
 
 
 @pytest.fixture(autouse=True)
@@ -253,6 +253,9 @@ def test_stream_server_perf_is_its_spans():
     for k in PERF_KEYS:
         assert srv.perf[k] > 0, k
         assert srv.perf[k] == pytest.approx(spans[f"serve.{k}"]["total_s"])
+    # the tail is tracked and packed by one window call too
+    assert {s for s in spans if s.startswith("serve.")} == {
+        f"serve.{k}" for k in PERF_KEYS}
 
 
 GRAPH_COUNTERS = {"track.graph_captures", "track.graph_replays"}

@@ -83,8 +83,8 @@ def _wipeoff_args(tree, k=K):
 @pytest.mark.parametrize("delays", [None, (0, 255), (1, 128)])
 def test_heavy_stage_matches_pallas_vpu(delays):
     states, tree, blocks, codes, ffts = _setup(K, delays)
-    cfg = CFG.replace(use_pallas_kernels=True)
-    want = heavy_stage_pallas(_jax(cfg), K, states, jnp.asarray(blocks),
+    jcfg = _jax(CFG).replace(use_pallas_kernels=True)
+    want = heavy_stage_pallas(jcfg, K, states, jnp.asarray(blocks),
                               jnp.asarray(codes), jnp.asarray(ffts))
     got = ttrk.heavy_stage(CFG, K, ttrk.states_from_numpy(tree, "cpu"),
                            _planar(blocks), 0, torch.from_numpy(codes),

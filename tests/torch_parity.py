@@ -57,6 +57,24 @@ def same(got, want, what: str = "") -> None:
     np.testing.assert_equal(plain(got), plain(want), err_msg=what)
 
 
+# the JAX config's fields that the port's config does not have, each at
+# the value that is the port's one behaviour: kernels picked by the
+# backend, one tracking call a download window, subframes polled every
+# epoch
+JAX_ONLY_FIELDS = {"use_pallas_kernels": None, "use_pallas_cheap": None,
+                   "fused_window_dispatch": True,
+                   "defer_subframe_poll": False}
+
+
+def same_config(got, want) -> None:
+    """The port's ReceiverConfig `got` equals the JAX package's `want` in
+    every field the port's has, and `want`'s other fields hold
+    JAX_ONLY_FIELDS."""
+    want = dataclasses.asdict(want)
+    assert {k: want.pop(k) for k in JAX_ONLY_FIELDS} == JAX_ONLY_FIELDS
+    same(dataclasses.asdict(got), want)
+
+
 def twin(fn, *names: str):
     """fn(*modules) on the JAX package's modules named `names`, then on
     the port's; the two results must be equal.  Returns (JAX, port)."""
