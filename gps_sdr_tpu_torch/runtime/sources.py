@@ -20,12 +20,14 @@ checks.  replay_decimated runs the port's digital front end
 from __future__ import annotations
 
 import os
+import queue
+import threading
 from typing import Iterator
 
 import numpy as np
 
 from gps_sdr_tpu_torch.config import ReceiverConfig
-from gps_sdr_tpu_torch.utils.profiling import span
+from gps_sdr_tpu_torch.utils.profiling import count, span
 
 
 def unpack_iq(words: np.ndarray) -> np.ndarray:
@@ -53,23 +55,117 @@ def pack_iq(samples: np.ndarray) -> np.ndarray:
     return (im.astype(np.uint16) * 256 + re.astype(np.uint16))
 
 
+_AHEAD = 2   # chunks the reader thread keeps ready ahead of the consumer
+
+
 def replay_blocks(path: str, cfg: ReceiverConfig,
                   start_stream: int = 0,
                   max_blocks: int | None = None) -> Iterator[np.ndarray]:
     """Stream a recorded capture's blocks as their NGPS packed uint16
     words, 256*Q + I (streamData, gpsrecv.py:153-186; START_STREAM skip
-    supported); unpack_iq gives a block's complex64 samples."""
-    n = 0
-    with open(path, "rb") as f:
-        if start_stream:
-            f.seek(2 * cfg.ngps * start_stream, os.SEEK_SET)
-        while max_blocks is None or n < max_blocks:
+    supported); unpack_iq gives a block's complex64 samples.
+
+    The capture is read ahead of the consumer, as the reference's
+    producer does: a reader thread (_read_ahead) reads it a chunk of
+    cfg.no_sec blocks at a time into a fresh buffer, with at most
+    _AHEAD read chunks waiting, never past max_blocks, and the
+    generator hands out each chunk's blocks as views of it; no buffer
+    is written after it is handed over, so a block the caller holds
+    never changes.  A trailing partial block is dropped; an error of
+    the read is raised here after the blocks read before it.  Closing
+    or dropping the generator stops the thread, which closes the
+    file.
+
+    The source.read span times the consumer's wait for each block (the
+    end of the capture too), source.fill the thread's reads; the
+    counters source.blocks and source.ready count the blocks handed out
+    and those of a chunk that was read before the consumer asked for
+    it."""
+    ready: queue.Queue = queue.Queue(_AHEAD)
+    stop = threading.Event()
+    reader = threading.Thread(
+        target=_read_ahead, name="replay_blocks", daemon=True,
+        args=(path, 2 * cfg.ngps * start_stream, cfg.ngps, cfg.no_sec,
+              max_blocks, ready, stop))
+    reader.start()
+    try:
+        blocks, i = (), 0
+        while True:
             with span("source.read"):
-                words = np.fromfile(f, dtype=np.uint16, count=cfg.ngps)
-            if words.size != cfg.ngps:
-                return  # EOF
-            yield words
-            n += 1
+                if i == len(blocks):
+                    try:
+                        blocks, waited = ready.get_nowait(), False
+                    except queue.Empty:
+                        blocks, waited = ready.get(), True
+                    if blocks is None:
+                        return  # EOF
+                    if isinstance(blocks, Exception):
+                        raise blocks
+                    i = 0
+                count("source.blocks")
+                if not waited:
+                    count("source.ready")
+            yield blocks[i]
+            i += 1
+    finally:
+        stop.set()
+        while True:  # free a put the thread is blocked in
+            try:
+                ready.get_nowait()
+            except queue.Empty:
+                break
+        reader.join()
+
+
+def _read_ahead(path: str, offset: int, ngps: int, per_chunk: int,
+                max_blocks: int | None, ready: queue.Queue,
+                stop: threading.Event) -> None:
+    """replay_blocks' reader thread: the file's whole blocks from byte
+    `offset` on, at most max_blocks of them, put on `ready` as
+    [n, ngps] arrays of up to per_chunk blocks, then None at the end or
+    the exception that stopped the read.  Returns at its next put once
+    `stop` is set: the consumer sets it, then empties `ready`, which
+    frees a put that was waiting for room."""
+
+    def put(item) -> bool:
+        if stop.is_set():
+            return False
+        ready.put(item)
+        return True
+
+    try:
+        with open(path, "rb", buffering=0) as f:
+            if offset:
+                f.seek(offset, os.SEEK_SET)
+            left = max_blocks
+            while left is None or left > 0:
+                n = per_chunk if left is None else min(per_chunk, left)
+                buf = np.empty((n, ngps), np.uint16)
+                view = memoryview(buf).cast("B")
+                got, err = 0, None
+                with span("source.fill"):
+                    try:
+                        while got < len(view):
+                            k = f.readinto(view[got:])
+                            if not k:
+                                break
+                            got += k
+                    except OSError as e:
+                        err = e
+                whole = got // (2 * ngps)
+                if whole and not put(buf[:whole]):
+                    return
+                if err is not None:
+                    put(err)
+                    return
+                if whole < n:
+                    break  # EOF
+                if left is not None:
+                    left -= n
+    except Exception as e:  # the consumer raises it
+        put(e)
+        return
+    put(None)
 
 
 def replay_decimated(path: str, cfg: ReceiverConfig, input_rate: float,

@@ -10,8 +10,10 @@ and the benchmark readers that read them, on the CPU.
   * a tiny Session.run_source over a capture file records every span the
     readers read: rx.blocks is the blocks tracked (blocks_processed less
     the cold sweep's), the fused track.kstep count is status.k_steps,
-    rx.upload_bytes is rx.blocks x ngps x 8 (complex64); each reader
-    gives a number from that run and None from an empty snapshot;
+    rx.upload_bytes is rx.blocks x ngps x 2 (packed words), source.read
+    times every block's wait and the end, source.fill the reader
+    thread's reads, source.blocks counts the blocks handed out; each
+    reader gives a number from that run and None from an empty snapshot;
   * StreamServer.perf keeps its six stages, each the sum of its
     serve.<stage> span;
   * track.graph_captures and track.graph_replays count where the
@@ -49,7 +51,8 @@ SATS = [SatSignal(prn=5, doppler=987.0, code_delay=77.25,
 N_BLOCKS = 1 + CFG.no_sec + 6
 READERS = ("source_ms_per_s", "upload_gbps", "kstep_enqueue_us",
            "download_wait_ms_per_s", "nav_ms_per_s", "acq_ms_per_sweep",
-           "chunk_p95_ms", "loop_self_ms_per_s", "packed_upload_share")
+           "chunk_p95_ms", "loop_self_ms_per_s", "packed_upload_share",
+           "source_ready_share")
 PERF_KEYS = ("dispatch", "stack", "transfer", "unpack", "consume")
 
 
@@ -195,9 +198,10 @@ def test_session_records_every_span_the_readers_read(session_run):
     sess, snap = session_run
     st = sess.receiver.status
     spans, counts = snap["spans"], snap["counts"]
-    assert {"session.open", "session.run", "source.read", "rx.chunk",
-            "rx.upload", "track.kstep", "track.block", "rx.download",
-            "rx.nav", "acq.sweep", "eval.process"} <= set(spans)
+    assert {"session.open", "session.run", "source.read", "source.fill",
+            "rx.chunk", "rx.upload", "track.kstep", "track.block",
+            "rx.download", "rx.nav", "acq.sweep",
+            "eval.process"} <= set(spans)
     assert st.blocks_processed == N_BLOCKS
     assert counts["rx.blocks"] == st.blocks_processed - 1  # cold sweep's
     assert spans["track.kstep"]["count"] == st.k_steps
@@ -206,6 +210,10 @@ def test_session_records_every_span_the_readers_read(session_run):
     assert counts["rx.upload_bytes"] == counts["rx.blocks"] * CFG.ngps * 2
     assert counts["rx.packed_blocks"] == counts["rx.blocks"]
     assert spans["source.read"]["count"] == N_BLOCKS + 1    # and the EOF
+    # the reader thread's reads: a chunk, then the tail and the EOF
+    assert spans["source.fill"]["count"] == 2
+    assert counts["source.blocks"] == N_BLOCKS
+    assert 0 <= counts.get("source.ready", 0) <= N_BLOCKS
     assert spans["rx.chunk"]["count"] == 2
     assert spans["eval.process"]["count"] == 2
     assert spans["session.run"]["count"] == 1
