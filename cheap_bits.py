@@ -29,20 +29,21 @@ from pathlib import Path
 import chip_smoke
 
 
-def other_library(root: Path) -> ctypes.CDLL:
-    """OTHER_ROOT's cheap.cu compiled with the product flags, loaded with
-    this checkout's C signature."""
+def other_library(root: Path, name: str = "cheap") -> ctypes.CDLL:
+    """OTHER_ROOT's csrc/<name>.cu compiled with the product flags, loaded
+    with this checkout's C signature of that kernel."""
     from gps_sdr_tpu_torch.ops import _build
 
-    src = root / "gps_sdr_tpu_torch" / "csrc" / "cheap.cu"
+    src = root / "gps_sdr_tpu_torch" / "csrc" / f"{name}.cu"
     tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    lib = _build.BUILD_DIR / f"libgsdr_cheap_other_{tag}.so"
+    lib = _build.BUILD_DIR / f"libgsdr_{name}_other_{tag}.so"
     _build.compile_libraries(
-        {"cheap_other": ([_build.nvcc(), *_build.NVCC_FLAGS, str(src)],
-                         lib)})
+        {f"{name}_other": ([_build.nvcc(), *_build.NVCC_FLAGS, str(src)],
+                           lib)})
     dll = ctypes.CDLL(str(lib))
-    fn = dll.gsdr_cheap_launch
-    fn.argtypes = [ctypes.POINTER(_build.CheapArgs), ctypes.c_void_p]
+    entry, args = _build.ENTRIES[name]
+    fn = getattr(dll, entry)
+    fn.argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     dll.gsdr_error_string.argtypes = [ctypes.c_int]
     dll.gsdr_error_string.restype = ctypes.c_char_p

@@ -292,6 +292,21 @@ Phases (any failure raises and the script exits non-zero):
         cuda:0 repeated (4 channels, 32 blocks): the work factors, the
         exact stitch equal to the sequential scan as 11b holds it, and
         no kernel launched (the K=1 scan).
+ 17. the 2.4 MS/s slice (one RTL-SDR dongle: code_samples 2400; kernel
+     1 in 16 column tiles of 152, the last 120 columns, kernel 2 in 19
+     of 128, the last 96), K=8, 12 channels:
+     a. both wipeoff wrappers on card tensors against their plain
+        versions with phase 2's tolerances, with the predicted delays and
+        with crafted ones around the first tile's edge and the last
+        tile's first column, and inside the partial tile (RATE24_DELAYS);
+        repeated launches bit-identical;
+     b. a receiver chunk of two K-steps at that period
+        (track_chunk_batched_impl), through kernel 1 and then kernel 2,
+        the launch counters and the profiling counters zeroed just
+        before each: the chosen wipeoff kernel and cheap launch once a
+        K-step, the other wipeoff kernel never, track.partial_tile_steps
+        counts every K-step; the correlation delays equal the CPU plain
+        path's, its code phases within 5e-3 samples.
 The line before the last holds the kernels' launches (launches_bench: a
 count for each of the bench's extras; launches_envelope: one for each
 phase-13 run; launches_examples: one for each phase-14 run in this
@@ -1889,6 +1904,89 @@ def run_wideband_kernels(dev) -> dict:
             f"{'shared' if shared else 'distinct'} chunks: both kernels "
             "within tolerance of their plain versions and bit-identical "
             "to 2 single-stream launches")
+    return out
+
+
+# phase 17: the 2.4 MS/s period and the crafted delays on both sides of
+# the first tile's edge and of the last tile's first column, and inside
+# that tile: kernel 1's tiles of 152 columns (the last 120) and kernel
+# 2's of 128 (the last 96)
+RATE24_CS, RATE24_CH = 2400, 12
+RATE24_DELAYS = (0, 1, 127, 128, 151, 152, 2279, 2280, 2303, 2304, 2305,
+                 2351, 2398, 2399)
+
+
+def run_rate24_phase(dev) -> dict:
+    """Phase 17: the wipeoff kernels and a receiver's K-steps at cs 2400
+    (2.4 MS/s), whose last column tile is partial in both kernels, K=8
+    and 12 channels."""
+    import numpy as np
+    import torch
+    from gps_sdr_tpu_torch import ReceiverConfig
+    from gps_sdr_tpu_torch.ops import hopper_wipeoff, tracking
+    from gps_sdr_tpu_torch.utils import profiling
+
+    cfg = ReceiverConfig(code_samples=RATE24_CS, max_sat=RATE24_CH)
+    k = cfg.blocks_per_step
+    assert hopper_wipeoff.partial_tile(cfg.code_samples)
+    st, chunk, codes, ffts = make_case(cfg, RATE24_CH, 2 * k, 24, dev)
+    vals = torch.tensor(RATE24_DELAYS, dtype=torch.int32)
+    crafted = vals[torch.arange(RATE24_CH * k).reshape(RATE24_CH, k)
+                   % len(vals)]
+    out = {}
+    # a. the wrappers against their plain versions
+    for name, vpu in (("wipeoff", False), ("wipeoff_vpu", True)):
+        r = check_wipeoff(cfg, st, chunk, 1, codes, ffts, vpu=vpu)
+        rc = check_wipeoff(cfg, st, chunk, 0, codes, ffts, vpu=vpu,
+                           wipe=crafted)
+        check_repeat_bits(cfg, st, chunk, 1, codes, vpu, wipe=crafted)
+        r["crafted_max_abs_err"] = rc["max_abs_err"]
+        out[name] = r
+        log(f"[17a] {name}, cs {RATE24_CS}, {RATE24_CH} channels: max abs "
+            f"err {r['max_abs_err']:.3g} (delays in the partial tile "
+            f"{rc['max_abs_err']:.3g}); repeats bit-identical")
+    # b. the receiver's K-steps, launches counted from zero
+    host = [x.cpu() for x in (chunk, codes, ffts)]
+    st_cpu = type(st)(*(x.cpu() for x in st))
+    for mxu in (True, False):
+        c = cfg.replace(use_mxu_wipeoff=mxu)
+        _, want = tracking.track_chunk_batched_impl(c, st_cpu, host[0], 0,
+                                                    host[1], host[2])
+        _reset_launches()
+        profiling.reset()
+        _, got = tracking.track_chunk_batched_impl(c, st, chunk, 0, codes,
+                                                   ffts)
+        torch.cuda.synchronize()
+        launches = _read_launches()
+        partial = profiling.snapshot()["counts"].get(
+            "track.partial_tile_steps", 0)
+        name = "wipeoff" if mxu else "wipeoff_vpu"
+        other = "wipeoff_vpu" if mxu else "wipeoff"
+        if not (launches[name] == launches["cheap"] == 2
+                and launches[other] == 0 and partial == 2):
+            raise AssertionError(f"[17b] {name}: launches {launches}, "
+                                 f"partial-tile K-steps {partial}, want "
+                                 f"2 of {name} and cheap")
+        dg, dw = got.delay.cpu().numpy(), want.delay.numpy()
+        if not np.array_equal(dg, dw):
+            raise AssertionError(f"[17b] {name}: correlation delays differ "
+                                 f"from the CPU's: {dg.tolist()} vs "
+                                 f"{dw.tolist()}")
+        ok = dw >= 0
+        if not ok.any():
+            raise AssertionError(f"[17b] {name}: no correlation peak")
+        cp = float(np.abs(got.code_phase.cpu().numpy()[ok]
+                          - want.code_phase.numpy()[ok]).max())
+        if not cp <= 5e-3:
+            raise AssertionError(f"[17b] {name}: code phase err {cp:.3g} "
+                                 "from the CPU's")
+        out[f"kstep_{name}"] = {"launches": launches, "partial_steps": partial,
+                                "code_phase_err": cp}
+        log(f"[17b] receiver K-steps at cs {RATE24_CS} on {name}: "
+            f"launches {launches}, partial-tile K-steps {partial}, "
+            f"delays equal the CPU's, code phase err {cp:.3g}")
+    profiling.reset()
+    _reset_launches()
     return out
 
 
@@ -5699,6 +5797,9 @@ def main() -> int:
     # 16. the tools slice: the analysis tools of the examples
     tl = run_tools(cfg, dev)
 
+    # 17. the 2.4 MS/s slice: the partial column tile
+    r24 = run_rate24_phase(dev)
+
     kernels = [
         _kernel_entry("wipeoff", "wipeoff.cu",
                       "gps_sdr_tpu/ops/pallas_kernels.py:171",
@@ -5721,13 +5822,17 @@ def main() -> int:
             "bias_16msps": bias["launches"][entry["name"]],
             "closed_loop_16msps": wb["launches"][entry["name"]],
             "closed_loop_2msps": wb["narrow"]["launches"][entry["name"]]}
-    wipe_range = {"code_samples": f"multiple of {hopper_wipeoff.TILE} up to "
+    wipe_range = {"code_samples": f"multiple of {hopper_wipeoff.CS_STEP} "
+                                  f"from {hopper_wipeoff.TILE} to "
                                   f"{hopper_wipeoff.MAX_CS}",
                   "n_cyc": list(hopper_wipeoff.N_CYC),
                   "corr_avg_max": hopper_wipeoff.MAX_CA,
                   "channels_per_stream_max": hopper_wipeoff.MAX_CH}
     for entry in kernels[:2]:
         entry["shapes"] = wipe_range
+        entry["cs2400_ch12"] = {
+            key: r24[entry["name"]][key]
+            for key in ("max_abs_err", "crafted_max_abs_err")}
         for n_ch in (8, 11):
             r = wk[f"{entry['name']}_cs16384_ch{n_ch}"]
             entry[f"cs16384_ch{n_ch}"] = {

@@ -8,6 +8,7 @@
     python -m gps_sdr_tpu_torch eval --ui plot               # other machine
     python -m gps_sdr_tpu_torch serve synth --streams 8 --save-state s.pkl
     python -m gps_sdr_tpu_torch replay hi.bin --input-rate 8192000
+    python -m gps_sdr_tpu_torch replay rtl24.bin --sample-rate 2.4e6
     python -m gps_sdr_tpu_torch snapshot cap.bin --ephem-cache e.json
         --prior-geo LAT,LON,H --tow TOW
 
@@ -25,7 +26,10 @@ an epoch.  `--ui plot` imports matplotlib (optional) and `live` pyrtlsdr
 (optional) only when asked for.  `replay --input-rate` decimates (and
 with --input-if downconverts) a higher-rate capture through the digital
 front end on the device; `snapshot` solves a coarse-time fix from one
-block.  A resumed run (`--resume-state`) keeps the checkpoint's config
+block.  `--sample-rate` (replay, synth, live, serve, and the evaluator
+modes) sets the processing rate, a multiple of 4 kHz: code_samples =
+rate / 1000 (2.048 MS/s by default; an RTL-SDR dongle's 2.4 MS/s gives
+2400).  A resumed run (`--resume-state`) keeps the checkpoint's config
 and continues the source at the block where the saved run stopped; the
 port's `serve` does so too (unlike the JAX package's, which replays
 its source from block 0 against the resumed receivers).
@@ -46,6 +50,30 @@ DEVICE_MODES = ("replay", "synth", "live", "serve", "snapshot")
 # the eval loop ends after this many seconds without an epoch (and, with
 # --max-sec, this long after max_sec)
 EVAL_IDLE_SEC = 30.0
+# --sample-rate's default (code_samples 2048) and the step its values
+# take: a code period of rate / 1000 samples, a multiple of 4, which the
+# wipeoff kernels take (ops/hopper_wipeoff.py CS_STEP)
+SAMPLE_RATE = 2.048e6
+RATE_STEP = 4000.0
+
+
+def sample_rate(text: str) -> float:
+    """--sample-rate's value in Hz; refuses a rate that is not a positive
+    multiple of RATE_STEP."""
+    try:
+        rate = float(text)
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"{text!r} is not a rate in Hz")
+    if not rate > 0 or rate % RATE_STEP:
+        raise argparse.ArgumentTypeError(
+            f"{text} Hz is not a multiple of {RATE_STEP / 1e3:g} kHz (the "
+            f"code period, rate / 1000 samples, must be a multiple of 4)")
+    return rate
+
+
+def code_samples(args) -> int:
+    """The code period, in samples, of the --sample-rate given."""
+    return int(round(args.sample_rate / 1000.0))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -54,7 +82,15 @@ def build_parser() -> argparse.ArgumentParser:
         description="GPS L1 C/A software receiver on PyTorch/CUDA")
     sub = ap.add_subparsers(dest="mode", required=True)
 
+    def rate(p):
+        p.add_argument("--sample-rate", type=sample_rate,
+                       default=SAMPLE_RATE, metavar="HZ",
+                       help="processing sample rate, a multiple of 4 kHz "
+                            "(code_samples = rate / 1000; default "
+                            "2.048e6; an RTL-SDR at 2.4e6)")
+
     def common(p):
+        rate(p)
         p.add_argument("--n-cyc", type=int, default=32, choices=(8, 16, 32),
                        help="code periods per block (32 -> 32 ms epochs)")
         p.add_argument("--max-sat", type=int, default=11)
@@ -202,6 +238,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "checkpoint")
     p.add_argument("--windows", type=int, default=16,
                    help="chunks per download window")
+    rate(p)
 
     p = sub.add_parser("snapshot", help="coarse-time snapshot fix from "
                        "one block of a capture — no nav decode; needs "
@@ -230,7 +267,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def make_config(args) -> ReceiverConfig:
-    kw = dict(n_cyc=args.n_cyc, max_sat=args.max_sat)
+    kw = dict(code_samples=code_samples(args), n_cyc=args.n_cyc,
+              max_sat=args.max_sat)
     if args.conf_height is not None:
         kw.update(conf_height=True, height=args.conf_height)
     if getattr(args, "solve_clock_rate", False):
@@ -575,8 +613,8 @@ def serve_config(args) -> ReceiverConfig:
     """The serving configuration: download windows of --windows chunks, 4
     windows in flight, subframes polled once a window, one epoch a
     window."""
-    kw = dict(n_cyc=args.n_cyc, max_sat=args.max_sat,
-              chunks_per_download=args.windows,
+    kw = dict(code_samples=code_samples(args), n_cyc=args.n_cyc,
+              max_sat=args.max_sat, chunks_per_download=args.windows,
               download_windows_in_flight=4,
               epoch_per_window=True)
     if args.conf_height is not None:

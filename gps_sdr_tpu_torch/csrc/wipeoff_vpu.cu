@@ -16,22 +16,30 @@
 // and every product runs on CUDA cores (csrc/wipeoff.cu is the
 // tensor-core formulation).
 //
-// One launch: grid (K, n_ranks, S), the n_ranks = min(cs / kTile,
+// One launch: grid (K, n_ranks, S), the n_ranks = min(n_tiles,
 // kMaxTiles) CTAs of a block and stream form a thread-block cluster (16
 // from cs = 2048 up, a non-portable size).  Rank r takes the column tiles
 // [r * n_tiles / n_ranks, (r + 1) * n_tiles / n_ranks) of the n_tiles =
-// cs / kTile, one after the other in tile order: one tile a CTA up to cs =
-// 2048, 8 at cs = 16384 (16.384 MS/s).  The z axis is the stream axis of
-// the serving path (the batch axis Pallas's vmap rule gives the TPU
-// kernel): the CTAs of stream z serve its C channels, at z*C on the
-// flattened S*C channel axis of every parameter and result, and read its
-// chunk, chunk_stride floats after stream z-1's (0: one chunk shared by
-// every stream, re-read from L2 by all but the first).  Nothing else
-// depends on z, so a launch over S streams gives the bits of S
-// single-stream launches; the channel limit (kMaxCh) is per stream.  A CTA
-// has 4 main warps and 4 helper warps.  For each of its tiles, and in it
-// for each group of at most kGroup channels (a thread's table entries of
-// 16 channels fill its registers; 32 channels are two groups):
+// ceil(cs / kTile), one after the other in tile order: one tile a CTA up
+// to cs = 2048, 8 at cs = 16384 (16.384 MS/s), one or two at cs = 2400
+// (2.4 MS/s: 19 tiles, ranks 5, 10 and 15 take two).  A code period off
+// the tile grid (cs a multiple of 4, not of kTile) ends in a partial tile
+// of cs mod kTile columns: only its granules inside the period are staged,
+// the rest of its slab and its rolled codes there are zero, so the
+// columns past cs add nothing to any sum, and no center sample is written
+// there.  Those masks sit on that tile alone (a second instance of the
+// staging and gather loops); every full tile runs the loops of a period
+// on the grid.  The z axis is the stream axis of the serving path (the
+// batch axis Pallas's vmap rule gives the TPU kernel): the CTAs of stream
+// z serve its C channels, at z*C on the flattened S*C channel axis of
+// every parameter and result, and read its chunk, chunk_stride floats
+// after stream z-1's (0: one chunk shared by every stream, re-read from
+// L2 by all but the first).  Nothing else depends on z, so a launch over
+// S streams gives the bits of S single-stream launches; the channel limit
+// (kMaxCh) is per stream.  A CTA has 4 main warps and 4 helper warps.  For
+// each of its tiles, and in it for each group of at most kGroup channels
+// (a thread's table entries of 16 channels fill its registers; 32
+// channels are two groups):
 //   1. every thread loads the parameters of its (channel, column) table
 //      entries; these few loads go ahead of the slab's traffic;
 //   2. (first group of a tile) the helpers start the copy of the tile's
@@ -116,7 +124,8 @@ constexpr int kMaxTiles = 16;       // CTAs of a cluster (non-portable > 8)
 constexpr int kMaxCa = 16;          // center periods held in registers
 constexpr int kGroup = 16;          // channels whose tables are built at once
 constexpr int kMaxCh = 32;          // channels a stream
-constexpr int kMaxCs = 16384;       // code period, samples (128 tiles)
+constexpr int kMinCs = kTile;       // code period, samples: a multiple of
+constexpr int kMaxCs = 16384;       // 4 (16-byte rows) in [kMinCs, kMaxCs]
 // (channel, column) table entries of a group a thread fills at most
 constexpr int kEnt = kGroup * kTile / kThreads;
 constexpr int kQ = 8;               // period slots of the main loop
@@ -137,8 +146,12 @@ struct Smem {       // the CTA's dynamic shared memory
   int* w;           // [C] the block's wipeoff delay
 };
 
+__host__ __device__ int n_tiles_of(const WipeoffVpuArgs& a) {
+  return (a.cs + kTile - 1) / kTile;
+}
+
 __host__ __device__ int n_ranks_of(const WipeoffVpuArgs& a) {
-  const int n_tiles = a.cs / kTile;
+  const int n_tiles = n_tiles_of(a);
   return n_tiles < kMaxTiles ? n_tiles : kMaxTiles;
 }
 
@@ -256,7 +269,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   cg::cluster_group cluster = cg::this_cluster();
   const int b = blockIdx.x, rank = blockIdx.y, n_ranks = gridDim.y;
   const int cs = a.cs, n_ch = a.n_ch, k = a.k, ca = a.corr_avg;
-  const int n_tiles = cs / kTile, sl = kNCyc + 1, gs = group_size(a);
+  const int n_tiles = n_tiles_of(a), sl = kNCyc + 1, gs = group_size(a);
   // this stream's first channel on the flattened S*C axis, and that axis
   const int ch0 = blockIdx.z * n_ch, n_all = gridDim.z * n_ch;
   const int tid = threadIdx.x;
@@ -273,6 +286,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int tile1 = (rank + 1) * n_tiles / n_ranks;
   for (int tile = tile0; tile < tile1; ++tile) {
     const int col0 = tile * kTile;
+    const int nv = min(kTile, cs - col0);   // the tile's columns in the period
     for (int g0 = 0; g0 < n_ch; g0 += gs) {
       const int gn = min(gs, n_ch - g0);
       // the previous group's or tile's readers of the slab, the tables
@@ -305,30 +319,47 @@ __global__ void __launch_bounds__(kThreads, 2)
       // 2. the helpers start the tile's slab copy: row = plane * n_cyc +
       //    q, rows cs floats apart in the chunk.  Granule gr of row `row`
       //    sits at gr ^ ((row / kP) % 8): the lanes of a main warp, kP
-      //    rows apart, then read different banks.
-      if (helper && g0 == 0) {
+      //    rows apart, then read different banks.  A partial tile's
+      //    granules past its nv columns are zero.
+      auto stage = [&](auto partial) {
         const float* blk = blk0 + col0;
         for (int v = tid - kMainThreads; v < 2 * kNCyc * kGran;
              v += kHelpThreads) {
           const int row = v / kGran, gr = v % kGran;
-          cp_async16(m.x + row * kGran + (gr ^ ((row / kP) % 8)),
-                     blk + (size_t)row * cs + 4 * gr);
+          float4* dst = m.x + row * kGran + (gr ^ ((row / kP) % 8));
+          if (!decltype(partial)::value || 4 * gr < nv)
+            cp_async16(dst, blk + (size_t)row * cs + 4 * gr);
+          else
+            *dst = make_float4(0.f, 0.f, 0.f, 0.f);
         }
         asm volatile("cp.async.commit_group;\n" ::);
+      };
+      if (helper && g0 == 0) {
+        if (nv == kTile)
+          stage(std::false_type{});
+        else
+          stage(std::true_type{});
       }
 
       // 3. the group's tables, while the slab lands: every rolled-code
       //    gather, code[(i - w) mod cs], so that they are in flight
-      //    together (one latency, not one per channel); the period table
-      //    (main warps); the column table
+      //    together (one latency, not one per channel; zero past a partial
+      //    tile's nv columns); the period table (main warps); the column
+      //    table
+      auto gather = [&](auto partial) {
 #pragma unroll
-      for (int i = 0; i < kEnt; ++i) {
-        const int v = tid + i * kThreads;
-        code[i] = 0.f;
-        if (v < n_ent)
-          code[i] = __ldg(a.codes + (size_t)(ch0 + g0 + v / kTile) * cs +
-                          (src[i] < 0 ? src[i] + cs : src[i]));
-      }
+        for (int i = 0; i < kEnt; ++i) {
+          const int v = tid + i * kThreads;
+          code[i] = 0.f;
+          if (v < n_ent && (!decltype(partial)::value || v % kTile < nv))
+            code[i] = __ldg(a.codes + (size_t)(ch0 + g0 + v / kTile) * cs +
+                            (src[i] < 0 ? src[i] + cs : src[i]));
+        }
+      };
+      if (nv == kTile)
+        gather(std::false_type{});
+      else
+        gather(std::true_type{});
       if (!helper) {
         for (int v = tid; v < gn * kNCyc; v += kMainThreads) {
           const int c = v / kNCyc, q = v % kNCyc;
@@ -427,35 +458,44 @@ __global__ void __launch_bounds__(kThreads, 2)
         // the mean center period: a thread per column holds its center
         // samples in registers and serves every channel of the group:
         // their sum against exp(-i s cs q), then the column factor once
-        const float inv_ca = 1.0f / (float)ca;
-        const float* xs = reinterpret_cast<const float*>(m.x);
-        const int j = tid - kMainThreads;
-        float xcr[kCa], xci[kCa];
+        // (a partial tile's columns past nv write nothing)
+        auto center = [&](auto partial) {
+          const int j = tid - kMainThreads;
+          if (decltype(partial)::value && j >= nv) return;
+          const float inv_ca = 1.0f / (float)ca;
+          const float* xs = reinterpret_cast<const float*>(m.x);
+          float xcr[kCa], xci[kCa];
 #pragma unroll
-        for (int u = 0; u < kCa; ++u) {
-          const int row = first + u;
-          const int at = row * kTile + 4 * ((j / 4) ^ ((row / kP) % 8)) + j % 4;
-          xcr[u] = u < ca ? xs[at] : 0.f;
-          xci[u] = u < ca ? xs[kNCyc * kTile + at] : 0.f;
-        }
-#pragma unroll 2
-        for (int c = 0; c < gn; ++c) {
-          // (cos, sin) of two center periods a load; zeros past corr_avg
-          const float4* cw =
-              reinterpret_cast<const float4*>(m.cen + c * kMaxCa);
-          float pr = 0.f, pi = 0.f;
-#pragma unroll
-          for (int u = 0; u < kCa; u += 2) {
-            const float4 f = cw[u / 2];
-            pr += xcr[u] * f.x + xci[u] * f.y;
-            pi += xci[u] * f.x - xcr[u] * f.y;
-            pr += xcr[u + 1] * f.z + xci[u + 1] * f.w;
-            pi += xci[u + 1] * f.z - xcr[u + 1] * f.w;
+          for (int u = 0; u < kCa; ++u) {
+            const int row = first + u;
+            const int at =
+                row * kTile + 4 * ((j / 4) ^ ((row / kP) % 8)) + j % 4;
+            xcr[u] = u < ca ? xs[at] : 0.f;
+            xci[u] = u < ca ? xs[kNCyc * kTile + at] : 0.f;
           }
-          const float2 o = rotate(pr, pi, m.osc[c * kTile + j]);
-          a.center[((size_t)b * n_all + ch0 + g0 + c) * cs + col0 + j] =
-              make_float2(o.x * inv_ca, o.y * inv_ca);
-        }
+#pragma unroll 2
+          for (int c = 0; c < gn; ++c) {
+            // (cos, sin) of two center periods a load; zeros past corr_avg
+            const float4* cw =
+                reinterpret_cast<const float4*>(m.cen + c * kMaxCa);
+            float pr = 0.f, pi = 0.f;
+#pragma unroll
+            for (int u = 0; u < kCa; u += 2) {
+              const float4 f = cw[u / 2];
+              pr += xcr[u] * f.x + xci[u] * f.y;
+              pi += xci[u] * f.x - xcr[u] * f.y;
+              pr += xcr[u + 1] * f.z + xci[u + 1] * f.w;
+              pi += xci[u + 1] * f.z - xcr[u + 1] * f.w;
+            }
+            const float2 o = rotate(pr, pi, m.osc[c * kTile + j]);
+            a.center[((size_t)b * n_all + ch0 + g0 + c) * cs + col0 + j] =
+                make_float2(o.x * inv_ca, o.y * inv_ca);
+          }
+        };
+        if (nv == kTile)
+          center(std::false_type{});
+        else
+          center(std::true_type{});
         main_loop(c_split, gn);
       } else {
         main_loop(0, c_split);
@@ -585,7 +625,7 @@ cudaError_t launch(const WipeoffVpuArgs& a, cudaStream_t stream) {
 
 extern "C" int gsdr_wipeoff_vpu_launch(const WipeoffVpuArgs* a,
                                        void* stream) {
-  if (a->cs <= 0 || a->cs % kTile != 0 || a->cs > kMaxCs ||
+  if (a->cs < kMinCs || a->cs % 4 != 0 || a->cs > kMaxCs ||
       a->n_ch <= 0 || a->n_ch > kMaxCh || a->k <= 0 || a->corr_avg <= 0 ||
       a->corr_avg > a->n_cyc || a->corr_avg > kMaxCa ||
       a->n_streams <= 0 || a->n_streams > 65535 || a->chunk_stride < 0 ||

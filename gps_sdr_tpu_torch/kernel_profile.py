@@ -51,7 +51,11 @@ torch.profiler (CUPTI), on one NVIDIA GPU.
      child): its wall, the device's busy share and the eval's output;
   7. bench_kernels: each kernel's device time a call at the bench's and
      the soak's K-steps (bench_kernel_configs: K=16 and 32 at 12
-     channels, and K=16 at cs 16384 with 3 channels).
+     channels, and K=16 at cs 16384 with 3 channels);
+  8. rate_kernels: each kernel's device time a call at 12 channels, K=8,
+     n_cyc 32, at the code periods of RATE_CS: 2.048 MS/s (cs 2048, on
+     the wipeoff kernels' 128-column grid) and 2.0, 2.4 and 2.5 MS/s
+     (cs 2000, 2400, 2500: a partial last tile).
 Every slice also sums its hand-written kernels' device time.
 Prints one JSON object (also written to PATH with --out).  Fails without
 a GPU.
@@ -73,6 +77,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (unclipped); its eval child ends after EVAL_IDLE_SEC without an epoch
 HOST_SCALE = 0.1
 EVAL_IDLE_SEC = 5.0
+# rate_kernels' code periods: 2.048, 2.0, 2.4 and 2.5 MS/s
+RATE_CS = (2048, 2000, 2400, 2500)
 
 
 def _device_times(prof) -> dict:
@@ -660,6 +666,15 @@ def profile_bench_kernels(cfg, dev) -> dict:
             for tag, c in bench_kernel_configs(cfg).items()}
 
 
+def profile_rate_kernels(cfg, dev) -> dict:
+    """Each kernel's device time a call at 12 channels and cfg's K and
+    n_cyc for each code period of RATE_CS, on random inputs of 2
+    K-steps."""
+    return {f"cs{cs}": profile_kernels(
+        cfg.replace(code_samples=cs, max_sat=12), dev, stream_counts=(),
+        n_blocks=2 * cfg.blocks_per_step) for cs in RATE_CS}
+
+
 def profile_host_slice(cfg, dev, sec: float = 40.0) -> dict:
     """The two-process topology of chip_smoke.py phase 10b: the synthetic
     fix scenario (host IQ times HOST_SCALE in an iq8 capture) replayed by
@@ -820,7 +835,7 @@ def main(argv=None) -> int:
                              "serving_slice", "frontend_slice", "cw_slice",
                              "wideband_kernels", "wideband_slice",
                              "ncyc64_kernels", "host_slice",
-                             "bench_kernels"),
+                             "bench_kernels", "rate_kernels"),
                     help="run only these parts (default: all)")
     args = ap.parse_args(argv)
     import torch
@@ -848,7 +863,8 @@ def main(argv=None) -> int:
              "wideband_slice": profile_wideband_slice,
              "ncyc64_kernels": profile_ncyc64_kernels,
              "host_slice": profile_host_slice,
-             "bench_kernels": profile_bench_kernels}
+             "bench_kernels": profile_bench_kernels,
+             "rate_kernels": profile_rate_kernels}
     res = {"card": card}
     for name, fn in parts.items():
         if args.only is None or name in args.only:

@@ -29,16 +29,24 @@ center periods; the arithmetic is ~20 flops per sample and channel
 (~0.11 GFLOP a step), so the bound is ~1.7 us either way.  At the
 16.384 MS/s multipath mode (cs=16384, n_cyc=8) a step reads 8.4 MB and
 writes 11.5 MB: ~6 us.  Both kernels are block-stationary, as the TPU
-kernels are: a CTA stages a [n_cyc, 128-column] slab of a block in shared
+kernels are: a CTA stages a [n_cyc, tile] slab of a block in shared
 memory once and serves every channel from it, so each block leaves
 device memory once; and both are one launch: the CTAs of a block form a
-thread-block cluster of min(cs/128, 16) CTAs, each of which takes
-cs/128/16 column tiles in a row once cs passes 2048, adds its tiles'
-shares of head and seg in tile order, and the cluster adds the CTAs'
-shares in a fixed order through distributed shared memory (no second
-kernel, no global scratch, no float atomics).  A CTA builds the tables
-of at most 16 channels at once and takes more in groups, so up to 32
-channels a stream fit its registers and shared memory.
+thread-block cluster of min(n_tiles, 16) CTAs over the n_tiles column
+tiles, each of which takes n_tiles/16 tiles in a row once cs passes
+2048; a CTA adds its tiles' shares of head and seg in tile order, and
+the cluster adds the CTAs' shares in a fixed order through distributed
+shared memory (no second kernel, no global scratch, no float atomics).
+A tile has 128 columns on the 128-column grid.  Off it, mix_wipeoff's
+tiles are wider where that saves a rank a second tile in a row (16 of
+152 columns at 2.4 MS/s, cs 2400; csrc/wipeoff.cu tile_width), and
+mix_wipeoff_vpu's stay 128 (19 at cs 2400, three ranks taking two).
+There the last tile is partial: its columns past cs are not staged
+(zero in shared memory), weigh zero and write no center sample; a cs
+that is a multiple of 128 runs neither the wider tiles nor a mask.  A
+CTA builds the tables of at most 16 channels at once and takes more in
+groups, so up to 32 channels a stream fit its registers and shared
+memory.
   * mix_wipeoff takes the TPU kernel's MXU factorization: the wipeoff
     sums are one contraction of the slab's re/im rows against the
     channels' weight columns, on the tensor cores (mma.sync TF32 in the
@@ -81,11 +89,19 @@ from gps_sdr_tpu_torch.config import ReceiverConfig
 from gps_sdr_tpu_torch.ops import _build, dsp
 
 # what both kernels (csrc/wipeoff.cu, csrc/wipeoff_vpu.cu) take: cs a
-# multiple of the column tile (kTile) up to kMaxCs, the 16.384 MS/s mode;
-# n_cyc in N_CYC; corr_avg up to the center periods held in registers
-# (kMaxCa); up to kMaxCh channels a stream (two groups of 16)
-TILE, MAX_CS, MAX_CA, MAX_CH = 128, 16384, 16, 32
+# multiple of CS_STEP samples (a period's row of complex64 or of planar
+# f32 then starts on a 16-byte boundary, which cp.async staging needs)
+# from one column tile (kTile, kMinCs) up to kMaxCs, the 16.384 MS/s
+# mode; n_cyc in N_CYC; corr_avg up to the center periods held in
+# registers (kMaxCa); up to kMaxCh channels a stream (two groups of 16)
+TILE, CS_STEP, MAX_CS, MAX_CA, MAX_CH = 128, 4, 16384, 16, 32
 N_CYC = (8, 16, 32, 64)
+
+
+def partial_tile(cs: int) -> bool:
+    """Whether a code period of cs samples ends in a partial column tile
+    (cs off the 128-column grid), which the kernels mask."""
+    return cs % TILE != 0
 
 
 def _mix_wipeoff_math(cfg: ReceiverConfig, k: int, s: torch.Tensor,
@@ -368,12 +384,13 @@ def _limits(name: str, cfg: ReceiverConfig, n_ch: int,
     not take: the configuration, the number of channels a stream, the
     address of the chunk."""
     cs, n_cyc, ca = cfg.code_samples, cfg.n_cyc, cfg.corr_avg
-    if cs % TILE or not 0 < cs <= MAX_CS or n_cyc not in N_CYC \
+    if cs % CS_STEP or not TILE <= cs <= MAX_CS or n_cyc not in N_CYC \
             or not 0 < ca <= min(n_cyc, MAX_CA) or not 0 < n_ch <= MAX_CH:
         raise ValueError(
-            f"{name} kernel: needs cs a multiple of {TILE} up to {MAX_CS}, "
-            f"n_cyc in {N_CYC}, 0 < corr_avg <= min(n_cyc, {MAX_CA}) and 1 "
-            f"to {MAX_CH} channels a stream; got cs={cs}, n_cyc={n_cyc}, "
+            f"{name} kernel: needs cs a multiple of {CS_STEP} from {TILE} "
+            f"to {MAX_CS} (a sample rate a multiple of 4 kHz), n_cyc in "
+            f"{N_CYC}, 0 < corr_avg <= min(n_cyc, {MAX_CA}) and 1 to "
+            f"{MAX_CH} channels a stream; got cs={cs}, n_cyc={n_cyc}, "
             f"corr_avg={ca}, {n_ch} channels")
     if chunk_ptr % 16:
         raise ValueError(f"{name} kernel: chunk must start on a 16-byte "

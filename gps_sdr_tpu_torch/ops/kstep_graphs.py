@@ -32,7 +32,10 @@ through _fused_steps' concatenation, which makes fresh tensors too.
 A replay runs the eager step's kernels in the same order on the same
 inputs, so it gives the eager step's bits.  The hand-written kernels'
 launch counters count what runs: a capture takes back its increments,
-and a replay adds the launches that its capture recorded.
+and a replay adds the launches that its capture recorded.  run counts
+track.partial_tile_steps: the K-steps it runs, eagerly on a CUDA device
+or replayed, whose wipeoff kernel runs a partial last column tile (a
+code period off its 128-column grid, hopper_wipeoff.partial_tile).
 """
 
 from __future__ import annotations
@@ -94,6 +97,14 @@ def graph_key(cfg, n_streams: int, states, chunk: torch.Tensor) -> tuple:
             tuple(chunk.shape), chunk.device)
 
 
+def partial_tile_steps(cfg, chunk: torch.Tensor) -> bool:
+    """Whether the K-steps of `chunk` run a wipeoff kernel on a partial
+    last column tile: on a CUDA device, at a code period off the
+    kernels' tile grid."""
+    return chunk.device.type == "cuda" and \
+        hopper_wipeoff.partial_tile(cfg.code_samples)
+
+
 def run_eager(step, states, chunk, n_steps: int, stream_no0, codes, spec):
     """The chunk's K-steps enqueued one by one: (final state, [each
     step's ChannelOut])."""
@@ -114,6 +125,8 @@ def run(cfg, n_streams: int, step, states, chunk, n_steps: int,
     step(states, chunk, j, stream_no0, codes, spec) -> (states, out) is
     K-step j of the chunk; stream_no0 reaches it as an int32 scalar
     tensor on the chunk's device when captured."""
+    if partial_tile_steps(cfg, chunk):
+        count("track.partial_tile_steps", n_steps)
     if chunk.device.type not in BACKENDS:
         return run_eager(step, states, chunk, n_steps, stream_no0, codes,
                          corr.prep_spec(code_ffts))

@@ -127,3 +127,67 @@ def test_snapshot_at_a_later_block(tmp_path, capsys):
     assert m, out
     assert abs(float(m.group(1)) - lat) < 0.002
     assert abs(float(m.group(2)) - lon) < 0.003
+
+
+@pytest.mark.parametrize("argv", [["replay", "x.bin"], ["live"],
+                                  ["synth"], ["serve", "synth"]])
+def test_sample_rate_sets_code_samples(argv, monkeypatch):
+    """--sample-rate 2.4e6 (an RTL-SDR's 2.4 MS/s) reaches each receiver
+    mode's configuration as code_samples 2400; without it the
+    configuration is the one the mode built before the flag."""
+    got = []
+    monkeypatch.setattr(cli, "run_in_process",
+                        lambda args, cfg: got.append(cfg) or 0)
+    monkeypatch.setattr(cli, "run_serve",
+                        lambda args: got.append(cli.serve_config(args)) or 0)
+    assert cli.main(argv + ["--sample-rate", "2.4e6"]) == 0
+    assert cli.main(argv) == 0
+    rate24, default = got
+    assert (rate24.code_samples, rate24.sample_rate) == (2400, 2.4e6)
+    assert rate24 == default.replace(code_samples=2400)
+    if argv[0] == "serve":
+        assert default == ReceiverConfig(
+            n_cyc=32, max_sat=11, chunks_per_download=16,
+            download_windows_in_flight=4, epoch_per_window=True)
+    else:
+        assert default == ReceiverConfig(n_cyc=32, max_sat=11)
+        assert default.code_samples == ReceiverConfig().code_samples
+
+
+@pytest.mark.parametrize("rate", ["2.401e6", "2002000", "0", "-2.4e6",
+                                  "fast"])
+@pytest.mark.parametrize("mode", [["replay", "x.bin"], ["serve", "synth"]])
+def test_sample_rate_off_the_4khz_grid_is_refused(mode, rate, capsys):
+    with pytest.raises(SystemExit) as exc:
+        cli.main(mode + [f"--sample-rate={rate}"])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert "--sample-rate" in err
+    assert ("multiple of 4 kHz" in err) or ("not a rate in Hz" in err)
+
+
+def test_replay_at_2_4_msps_on_cpu(tmp_path, capsys):
+    """`replay --sample-rate 2.4e6` of a capture recorded at 2.4 MS/s runs
+    the port at code_samples 2400 and finds its satellites."""
+    from gps_sdr_tpu_torch.utils.io import load_epoch_records
+
+    cfg = ReceiverConfig(code_samples=2400, n_cyc=8)
+    sats = [SatSignal(prn=7, doppler=-1320.0, code_delay=2310.5,
+                      amplitude=0.25, nav_bits=random_bits(64, seed=7)),
+            SatSignal(prn=21, doppler=2650.0, code_delay=415.0,
+                      amplitude=0.25, nav_bits=random_bits(64, seed=21))]
+    iq = synth_stream(cfg, sats, 20, noise_std=0.2, seed=9)
+    path = tmp_path / "cap24.bin"
+    pack_iq(iq.reshape(-1)).tofile(path)
+    rec = str(tmp_path / "ep.pickle")
+    rc = cli.main(["replay", str(path), "--n-cyc", "8", "--sample-rate",
+                   "2.4e6", "--device", "cpu", "--ui", "none",
+                   "--record-epochs", rec])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "processed" in out
+    recs = load_epoch_records(rec)
+    assert len(recs) == 1 and sorted(recs[0][2]) == [7, 21]
+    for prn, delay in ((7, 2310.5), (21, 415.0)):
+        cp = np.asarray(recs[0][2][prn])[:, 1]     # (block, code phase)
+        assert cp.size and np.abs(cp - delay).max() < 2.0, (prn, cp)

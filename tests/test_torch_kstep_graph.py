@@ -39,6 +39,8 @@ SMALL = ReceiverConfig(code_samples=256, n_cyc=8, corr_avg=4,
                        sweep_corr_avg=2, blocks_per_step=4,
                        corr_q_window_sec=2)
 PRODUCT = ReceiverConfig(max_sat=12)
+# 2.4 MS/s: the wipeoff kernels' last column tile is partial (96 of 128)
+RATE24 = PRODUCT.replace(code_samples=2400)
 N_STREAMS = 3
 # the sequence's graphs: families of 2 and 3 K-steps (one stream), of 2
 # (a chunk a stream) and of 2 (shared chunk), each captured at its first
@@ -133,7 +135,8 @@ def _eager_and_graphs(monkeypatch, cfg, dev, n_ch, backends):
     profiling.reset()
     graphs = _sequence(cfg, dev, n_ch)
     l2 = _launches()
-    counts = profiling.snapshot()["counts"]
+    snap = profiling.snapshot()
+    counts = dict(snap["counts"], kstep=snap["spans"]["track.kstep"]["count"])
     profiling.reset()
     return (eager, graphs, [b - a for a, b in zip(l0, l1)],
             [b - a for a, b in zip(l1, l2)], counts)
@@ -149,10 +152,35 @@ def test_emulated_graphs_give_the_eager_bits(monkeypatch, mxu):
     assert counts["track.graph_replays"] == REPLAYS
 
 
+@pytest.mark.parametrize("cs,partial", [(320, True), (256, False)])
+def test_partial_tile_steps_count_eager_and_replayed_steps(monkeypatch, cs,
+                                                           partial):
+    """track.partial_tile_steps counts every K-step of a period off the
+    128-column grid, eager or replayed, as track.kstep counts them (the
+    emulated graphs run on the CPU, which the predicate admits here)."""
+    monkeypatch.setattr(kstep_graphs, "partial_tile_steps",
+                        lambda cfg, chunk: hopper_wipeoff.partial_tile(
+                            cfg.code_samples))
+    cfg = SMALL.replace(code_samples=cs)
+    _, _, _, _, counts = _eager_and_graphs(
+        monkeypatch, cfg, torch.device("cpu"), 2, {"cpu": Emulated})
+    assert counts["track.graph_replays"] == REPLAYS
+    assert counts["kstep"] == CAPTURES + REPLAYS
+    assert counts.get("track.partial_tile_steps", 0) == (
+        counts["kstep"] if partial else 0)
+
+
+def test_partial_tile_steps_only_on_the_card():
+    chunk = torch.zeros(1)
+    assert not kstep_graphs.partial_tile_steps(RATE24, chunk)
+    assert not kstep_graphs.partial_tile_steps(PRODUCT, chunk)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mxu", [True, False], ids=["wipeoff", "vpu"])
-@pytest.mark.parametrize("cfg,n_ch", [(SMALL, 2), (PRODUCT, 12)],
-                         ids=["small", "product"])
+@pytest.mark.parametrize("cfg,n_ch", [(SMALL, 2), (PRODUCT, 12),
+                                      (RATE24, 12)],
+                         ids=["small", "product", "rate24"])
 def test_graphs_give_the_eager_bits_on_the_card(cuda, monkeypatch, cfg,
                                                 n_ch, mxu):
     cfg = cfg.replace(use_mxu_wipeoff=mxu)
@@ -164,6 +192,10 @@ def test_graphs_give_the_eager_bits_on_the_card(cuda, monkeypatch, cfg,
     assert n_eager[0 if mxu else 1] == n_eager[2] > 0
     assert counts["track.graph_captures"] == CAPTURES
     assert counts["track.graph_replays"] == REPLAYS
+    # every K-step of the graph run, eager or replayed, at 2.4 MS/s only
+    assert counts.get("track.partial_tile_steps", 0) == (
+        counts["kstep"] if hopper_wipeoff.partial_tile(cfg.code_samples)
+        else 0)
 
 
 def _state_at(cfg, prev_stream: int, reset_slot: bool):

@@ -303,3 +303,30 @@ def test_graph_counters_only_where_the_graphs_run(tmp_path, monkeypatch):
     # all replayed, the second session ends where the eager one did
     for a, b in zip(first.receiver.states, second.receiver.states):
         assert torch.equal(a, b)
+
+
+def test_partial_tile_share_reads_the_counter(tmp_path, monkeypatch):
+    """partial_tile_share is None where no K-step ran a partial tile (a
+    period on the 128-column grid, or the CPU), and the counted share of
+    the track.kstep spans where they did: here every K-step, eager or
+    replayed, with the predicate admitting the CPU's emulated graphs."""
+    from gps_sdr_tpu_torch.ops import kstep_graphs
+    from gsbench import manifest
+    share = manifest.reader("partial_tile_share")
+    path = _capture(tmp_path)
+    emulated(monkeypatch)
+    Session(CFG, device="cpu").run_source(replay_blocks(path, CFG))
+    assert "track.partial_tile_steps" not in profiling.snapshot()["counts"]
+    assert share.read(_ctx()) is None
+
+    monkeypatch.setattr(kstep_graphs, "partial_tile_steps",
+                        lambda cfg, chunk: True)
+    emulated(monkeypatch)               # a family keeps what it was made with
+    profiling.reset()
+    for _ in range(2):                  # a shape's first chunk, then replays
+        Session(CFG, device="cpu").run_source(replay_blocks(path, CFG))
+    snap = profiling.snapshot()
+    assert snap["counts"]["track.graph_replays"] > 0
+    assert snap["counts"]["track.partial_tile_steps"] == \
+        snap["spans"]["track.kstep"]["count"] > 0
+    assert share.read(_ctx()) == 100.0

@@ -148,9 +148,10 @@ def test_plain_wipeoff_matches_numpy_definition():
 
 
 def test_wipeoff_wrapper_limits():
-    """What csrc/wipeoff.cu takes: cs a multiple of 128 up to 16384 (past
-    one cluster of 16 column tiles from 4096 up), n_cyc 8 to 64, up to 32
-    channels a stream; and what it does not: cs off the 128-column tiling
+    """What csrc/wipeoff.cu takes: cs a multiple of 4 from 128 to 16384
+    (past one cluster of 16 column tiles from 4096 up; off the 128-column
+    grid with a partial last tile), n_cyc 8 to 64, up to 32 channels a
+    stream; and what it does not: cs off the multiple-of-4 grid, under 128
     or past 16384, 33 channels, a configuration outside its tiling, a
     misaligned chunk; and a tensor on neither the CPU nor a card."""
     meta = torch.empty((K, CFG.ngps), dtype=torch.complex64, device="meta")
@@ -163,11 +164,14 @@ def test_wipeoff_wrapper_limits():
                       (CFG.replace(code_samples=4096), 2),
                       (CFG.replace(code_samples=8192, n_cyc=16), 11),
                       (CFG.replace(code_samples=2176), 2), (wide, 8),
+                      (CFG.replace(code_samples=200), 2),
+                      (ReceiverConfig(code_samples=2500), 12),
                       (wide, hopper_wipeoff.MAX_CH),
                       (ReceiverConfig(n_cyc=64), hopper_wipeoff.MAX_CH)):
         limits("wipeoff", cfg, n_ch, 4096)
     for cfg, n_ch in ((wide, hopper_wipeoff.MAX_CH + 1), (CFG, 0),
-                      (CFG.replace(code_samples=200), 2),
+                      (CFG.replace(code_samples=202), 2),
+                      (CFG.replace(code_samples=124), 2),
                       (wide.replace(code_samples=16384 + 128), 2),
                       (CFG.replace(code_samples=32768), 2),
                       (CFG.replace(n_cyc=12), 2),

@@ -163,22 +163,27 @@ def test_vpu_wrapper_refuses_other_devices():
     with pytest.raises(ValueError, match="no path"):
         hopper_wipeoff.mix_wipeoff_vpu(CFG, K, None, None, None, None, meta,
                                        0, None)
-    # what the kernel takes: cs a multiple of 128 up to 16384 (past one
-    # cluster of 16 column tiles from 4096 up), up to 32 channels a stream;
-    # and what it does not: cs off the 128-column tiling or past 16384, a
+    # what the kernel takes: cs a multiple of 4 from 128 to 16384 (past
+    # one cluster of 16 column tiles from 4096 up; off the 128-column grid
+    # with a partial last tile), up to 32 channels a stream; and what it
+    # does not: cs off the multiple-of-4 grid, under 128 or past 16384, a
     # channel past 32, a configuration outside its tiling
     limits = hopper_wipeoff._limits
     wide = ReceiverConfig(code_samples=16384, n_cyc=8, corr_avg=4)
     for cfg, n_ch in ((CFG, 1), (CFG, 12), (ReceiverConfig(), 11),
                       (CFG.replace(code_samples=4096, n_cyc=32), 2),
                       (CFG.replace(code_samples=2176), 2), (wide, 11),
+                      (CFG.replace(code_samples=192), 2),
+                      (CFG.replace(code_samples=4160), 2),
+                      (ReceiverConfig(code_samples=2400), 12),
                       (wide, hopper_wipeoff.MAX_CH),
                       (ReceiverConfig(n_cyc=64), hopper_wipeoff.MAX_CH)):
         limits("wipeoff_vpu", cfg, n_ch, 0)
         limits("wipeoff_vpu", cfg, n_ch, 4096)
     for cfg, n_ch in ((CFG, hopper_wipeoff.MAX_CH + 1), (wide, 33),
-                      (CFG, 0), (CFG.replace(code_samples=192), 2),
-                      (CFG.replace(code_samples=4160), 2),
+                      (CFG, 0), (CFG.replace(code_samples=194), 2),
+                      (CFG.replace(code_samples=4162), 2),
+                      (CFG.replace(code_samples=124), 2),
                       (wide.replace(code_samples=16384 + 128), 2),
                       (CFG.replace(code_samples=32768), 2),
                       (CFG.replace(n_cyc=24), 2),
